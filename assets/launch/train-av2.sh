@@ -1,12 +1,12 @@
 #!/bin/bash
-# SeFlow++ SSL training on a v5e-8 slice — the TPU-native equivalent of the
+# SeFlow++ SSL training on the GPUs of one host — the equivalent of the
 # reference's 4-GPU slurm recipe (assets/slurm/ssl-train-av2.sh): data
 # parallelism comes from the jit-sharded batch over the mesh 'data' axis, so
-# no DDP launcher is needed — one process drives the whole slice.
+# no DDP launcher is needed — one process drives every GPU.
 #
-# Usage: bash assets/launch/train-av2-v5e8.sh /path/to/av2/h5
+# Usage: bash assets/launch/train-av2.sh /path/to/av2/h5
 set -euo pipefail
-DATA_DIR=${1:?usage: train-av2-v5e8.sh DATA_DIR [RUN_DIR]}
+DATA_DIR=${1:?usage: train-av2.sh DATA_DIR [RUN_DIR]}
 RUN_DIR=${2:-runs/seflowpp-av2}
 
 # 1) SSL pseudo-labels (once per dataset).

@@ -13,7 +13,7 @@ import multiprocessing
 import os
 from pathlib import Path
 
-from himo_tpu.utils.cli import run_cli
+from himo_tpu.utils.cli import pin_worker_to_cpu, run_cli
 
 
 def _proc(args):
@@ -46,7 +46,7 @@ def main(
             _proc(a)
     else:
         ctx = multiprocessing.get_context("spawn")
-        with ctx.Pool(processes=nproc) as pool:
+        with ctx.Pool(processes=nproc, initializer=pin_worker_to_cpu) as pool:
             list(pool.imap_unordered(_proc, args))
     create_reading_index(Path(output_dir))
 

@@ -9,16 +9,15 @@ Both zips and extracted directories are accepted.
 from __future__ import annotations
 
 import argparse
-import subprocess
-import sys
 from pathlib import Path
 
-# Codabench workers may lack pyarrow (the reference self-bootstraps it,
-# tools/test/score.py:11-16).
 try:
     import pyarrow  # noqa: F401
-except ImportError:  # pragma: no cover - environment-dependent
-    subprocess.check_call([sys.executable, "-m", "pip", "install", "pyarrow", "-q"])
+except ImportError as e:  # pragma: no cover - environment-dependent
+    raise SystemExit(
+        "himo_tpu.cli.score reads .feather archives and needs pyarrow: "
+        "pip install pyarrow"
+    ) from e
 
 from himo_tpu.eval.score import score
 

@@ -8,19 +8,28 @@ Implements the surface of the reference's ``src.dataset.HDF5Dataset``
     flow_category_indices, flow_instance_id, scene_id, timestamp
 
 plus ``data[vis_name]`` for a stored method-flow field. ``eval=True``
-restricts iteration to the frames listed in ``index_eval.pkl``.
+restricts iteration to the frames listed in ``index_eval.pkl``. Built with
+``scenes=`` instead of a directory, it serves the same items from frames
+held in memory (synthetic scenes, or data decoded elsewhere).
 """
 
 from __future__ import annotations
 
+import contextlib
 import pickle
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence
 
-import h5py
 import numpy as np
 
-from himo_tpu.data.index import INDEX_EVAL, INDEX_TOTAL, create_reading_index
+from himo_tpu.data.index import (
+    INDEX_EVAL,
+    INDEX_TOTAL,
+    _parse_timestamp,
+    _timestamp_sort_key,
+    create_reading_index,
+)
+from himo_tpu.data.schema import FrameData, frame_arrays
 
 
 class SceneFlowDataset:
@@ -41,8 +50,9 @@ class SceneFlowDataset:
         with_history: bool = False,
         extra_keys: Sequence[str] = (),
         next_keys: Sequence[str] = (),
+        scenes: Optional[Dict[str, Sequence[FrameData]]] = None,
     ):
-        self.directory = Path(data_dir)
+        self.directory = None if data_dir is None else Path(data_dir)
         self.vis_names = (
             [vis_name] if isinstance(vis_name, str) and vis_name else list(vis_name or [])
         )
@@ -54,8 +64,19 @@ class SceneFlowDataset:
         # the successor's pc0-side labels describe this item's pc1.
         self.next_keys = list(next_keys)
 
-        total_path = self.directory / INDEX_TOTAL
-        if total_path.exists():
+        self._groups = None
+        if scenes is not None:
+            self._groups = {
+                sid: {f.group_key or str(f.timestamp): frame_arrays(f) for f in frames}
+                for sid, frames in scenes.items()
+            }
+            self.data_index = [
+                [sid, _parse_timestamp(ts)]
+                for sid in sorted(self._groups)
+                for ts in sorted(self._groups[sid], key=_timestamp_sort_key)
+            ]
+        elif (self.directory / INDEX_TOTAL).exists():
+            total_path = self.directory / INDEX_TOTAL
             with open(total_path, "rb") as f:
                 self.data_index: List[list] = pickle.load(f)
         else:
@@ -67,8 +88,8 @@ class SceneFlowDataset:
 
         self.eval_index: Optional[List[list]] = None
         if eval:
-            eval_path = self.directory / INDEX_EVAL
-            if eval_path.exists():
+            eval_path = None if scenes is not None else self.directory / INDEX_EVAL
+            if eval_path is not None and eval_path.exists():
                 with open(eval_path, "rb") as f:
                     self.eval_index = pickle.load(f)
             else:
@@ -106,7 +127,7 @@ class SceneFlowDataset:
 
         nxt = self._next_entry(index)
         out: Dict[str, np.ndarray] = {"scene_id": scene_id, "timestamp": timestamp}
-        with h5py.File(self.directory / f"{scene_id}.h5", "r") as f:
+        with self._open(scene_id) as f:
             g = f[str(timestamp)]
             out["pc0"] = g["lidar"][()].astype(np.float32)
             out["pose0"] = g["pose"][()]
@@ -167,6 +188,15 @@ class SceneFlowDataset:
                     out["pose_prev"] = out["pose0"]
                     out["gm_prev"] = out["gm0"]
         return out
+
+    def _open(self, scene_id: str):
+        """The scene's groups: the .h5 file, or the in-memory arrays (numpy
+        arrays answer ``[()]`` as h5py datasets do)."""
+        if self._groups is not None:
+            return contextlib.nullcontext(self._groups[scene_id])
+        import h5py
+
+        return h5py.File(self.directory / f"{scene_id}.h5", "r")
 
     def scene_ids(self) -> List[str]:
         seen, ordered = set(), []

@@ -12,7 +12,6 @@ import pickle
 from pathlib import Path
 from typing import List, Optional, Sequence
 
-import h5py
 
 INDEX_TOTAL = "index_total.pkl"
 INDEX_EVAL = "index_eval.pkl"
@@ -23,6 +22,8 @@ def create_reading_index(data_dir, save: bool = True) -> List[list]:
     data_dir = Path(data_dir)
     index: List[list] = []
     for h5_path in sorted(data_dir.glob("*.h5")):
+        import h5py
+
         with h5py.File(h5_path, "r") as f:
             timestamps = sorted(f.keys(), key=_timestamp_sort_key)
             for ts in timestamps:

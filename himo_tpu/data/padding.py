@@ -6,8 +6,8 @@ SURVEY.md §5 "long-context" note). We pad every cloud up to a small set of
 bucket sizes so at most ``len(buckets)`` programs are ever compiled, and carry
 a boolean ``valid`` mask so padding never affects results.
 
-Bucket sizes are multiples of 1024 (8 sublanes x 128 lanes, the float32 TPU
-tile) so padded arrays map cleanly onto VMEM tiles.
+Bucket sizes are multiples of 1024 so padded arrays divide evenly into the
+power-of-two blocks GPU kernels use.
 """
 
 from __future__ import annotations

@@ -33,7 +33,6 @@ import dataclasses
 from pathlib import Path
 from typing import Dict, Optional
 
-import h5py
 import numpy as np
 
 # Canonical dtypes for schema-defined keys (repack_h5_scania.py:23-36 is the
@@ -81,33 +80,37 @@ class FrameData:
         return len(self.lidar)
 
 
+def frame_arrays(frame: FrameData) -> Dict[str, np.ndarray]:
+    """The arrays of one frame's group, keyed as in the .h5 file."""
+    out = {
+        "lidar": frame.lidar.astype(np.float32),
+        "lidar_id": frame.lidar_id.astype(np.uint8),
+        "lidar_dt": frame.lidar_dt.astype(np.float32),
+        "pose": frame.pose.astype(np.float64),
+        "timestamp": np.asarray(frame.timestamp),
+    }
+    if frame.lidar_center is not None:
+        out["lidar_center"] = frame.lidar_center.astype(np.float32)
+    if frame.flow is not None:
+        out["flow"] = frame.flow.astype(np.float32)
+        out["flow_is_valid"] = frame.flow_is_valid.astype(bool)
+        out["flow_category_indices"] = frame.flow_category_indices.astype(np.uint8)
+    if frame.flow_instance_id is not None:
+        out["flow_instance_id"] = frame.flow_instance_id.astype(np.uint32)
+    if frame.ego_motion is not None:
+        out["ego_motion"] = frame.ego_motion.astype(np.float32)
+    if frame.ground_mask is not None:
+        out["ground_mask"] = frame.ground_mask.astype(bool)
+    if frame.anno_bbx is not None:
+        out["anno_bbx"] = frame.anno_bbx.astype(np.float32)
+    out.update(frame.extras)
+    return out
+
+
 def write_frame(h5: h5py.File, frame: FrameData) -> None:
     """Write one frame as a group keyed by its timestamp string."""
     group = h5.create_group(frame.group_key or str(frame.timestamp))
-    group.create_dataset("lidar", data=frame.lidar.astype(np.float32))
-    group.create_dataset("lidar_id", data=frame.lidar_id.astype(np.uint8))
-    group.create_dataset("lidar_dt", data=frame.lidar_dt.astype(np.float32))
-    group.create_dataset("pose", data=frame.pose.astype(np.float64))
-    group.create_dataset("timestamp", data=frame.timestamp)
-    if frame.lidar_center is not None:
-        group.create_dataset("lidar_center", data=frame.lidar_center.astype(np.float32))
-    if frame.flow is not None:
-        group.create_dataset("flow", data=frame.flow.astype(np.float32))
-        group.create_dataset("flow_is_valid", data=frame.flow_is_valid.astype(bool))
-        group.create_dataset(
-            "flow_category_indices", data=frame.flow_category_indices.astype(np.uint8)
-        )
-    if frame.flow_instance_id is not None:
-        group.create_dataset(
-            "flow_instance_id", data=frame.flow_instance_id.astype(np.uint32)
-        )
-    if frame.ego_motion is not None:
-        group.create_dataset("ego_motion", data=frame.ego_motion.astype(np.float32))
-    if frame.ground_mask is not None:
-        group.create_dataset("ground_mask", data=frame.ground_mask.astype(bool))
-    if frame.anno_bbx is not None:
-        group.create_dataset("anno_bbx", data=frame.anno_bbx.astype(np.float32))
-    for key, value in frame.extras.items():
+    for key, value in frame_arrays(frame).items():
         group.create_dataset(key, data=value)
 
 
@@ -146,6 +149,8 @@ def write_method_flow(
     (SURVEY.md §2.9): per-frame (N, 3) float32 flow stored in the frame group.
     """
     path = Path(data_dir) / f"{scene_id}.h5"
+    import h5py
+
     with h5py.File(path, "a") as f:
         group = f[str(timestamp)]
         if method in group:

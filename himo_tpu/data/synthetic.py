@@ -21,7 +21,6 @@ import dataclasses
 from pathlib import Path
 from typing import List, Optional, Sequence
 
-import h5py
 import numpy as np
 
 from himo_tpu.core import categories as cat
@@ -88,9 +87,54 @@ def _sample_box_points(rng, n: int, size: np.ndarray) -> np.ndarray:
     return pts
 
 
-def make_scene(
-    output_dir,
-    scene_id: str = "scene_000",
+def lidar_like_cloud(rng, batch: int, n: int) -> np.ndarray:
+    """LiDAR-ish occupancy: radial density falloff, ground band + structure,
+    a few dense object clusters — matches real pillar-duplicate statistics
+    far better than uniform noise."""
+    out = np.empty((batch, n, 3), np.float32)
+    for b in range(batch):
+        n_ground = int(n * 0.45)
+        n_struct = int(n * 0.45)
+        n_obj = n - n_ground - n_struct
+        # Ground: radius ~ sqrt-uniform (denser near the sensor), low z.
+        r = 50.0 * np.sqrt(rng.uniform(0.004, 1.0, n_ground))
+        a = rng.uniform(0, 2 * np.pi, n_ground)
+        ground = np.stack(
+            [r * np.cos(a), r * np.sin(a), rng.normal(-1.6, 0.05, n_ground)], 1
+        )
+        # Structure: annulus walls/vegetation with vertical extent.
+        r = 50.0 * np.sqrt(rng.uniform(0.01, 1.0, n_struct))
+        a = rng.uniform(0, 2 * np.pi, n_struct)
+        struct = np.stack(
+            [r * np.cos(a), r * np.sin(a), rng.uniform(-1.5, 2.5, n_struct)], 1
+        )
+        # Objects: 16 dense clusters (cars/trucks).
+        centers = rng.uniform(-45, 45, size=(16, 3))
+        centers[:, 2] = rng.uniform(-1.0, 0.5, 16)
+        idx = rng.integers(0, 16, n_obj)
+        obj = centers[idx] + rng.normal(0, [1.8, 0.9, 0.6], (n_obj, 3))
+        out[b] = np.concatenate([ground, struct, obj]).astype(np.float32)
+    return out
+
+
+def make_scene(output_dir, scene_id: str = "scene_000", **scene_kwargs) -> Path:
+    """Write a synthetic scene .h5 (see :func:`scene_frames`) and return its
+    path."""
+    output_dir = Path(output_dir)
+    output_dir.mkdir(parents=True, exist_ok=True)
+    frames = scene_frames(**scene_kwargs)
+    scene_path = output_dir / f"{scene_id}.h5"
+    if scene_path.exists():
+        scene_path.unlink()
+    import h5py
+
+    with h5py.File(scene_path, "w") as f:
+        for frame in frames:
+            write_frame(f, frame)
+    return scene_path
+
+
+def scene_frames(
     num_frames: int = 5,
     num_background: int = 4000,
     objects: Optional[Sequence[BoxObject]] = None,
@@ -100,8 +144,8 @@ def make_scene(
     seed: int = 0,
     method_flows=(),
     method_noise: float = 0.0,
-) -> Path:
-    """Write a synthetic scene .h5 and return its path.
+) -> List[FrameData]:
+    """One synthetic scene's frames, in memory.
 
     ``method_flows`` adds estimated-flow fields: either a mapping
     ``{name: noise_std}`` or a sequence of names which all use
@@ -114,8 +158,6 @@ def make_scene(
             m: (0.0 if m == "perfect" else method_noise) for m in method_flows
         }
     rng = np.random.default_rng(seed)
-    output_dir = Path(output_dir)
-    output_dir.mkdir(parents=True, exist_ok=True)
 
     if objects is None:
         objects = [
@@ -247,14 +289,7 @@ def make_scene(
                 extras=extras,
             )
         )
-
-    scene_path = output_dir / f"{scene_id}.h5"
-    if scene_path.exists():
-        scene_path.unlink()
-    with h5py.File(scene_path, "w") as f:
-        for frame in frames:
-            write_frame(f, frame)
-    return scene_path
+    return frames
 
 
 def make_dataset(

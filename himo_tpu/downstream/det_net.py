@@ -2,10 +2,10 @@
 
 The reference's detection downstream runs OpenPCDet TransFusion-L over raw
 vs HiMo-compensated clouds (/root/reference/downstream/README.md:8-18).
-This is the TPU-native learned equivalent (upgrading the geometric
+This is the learned equivalent (upgrading the geometric
 cluster-fit harness in :mod:`himo_tpu.downstream.detection`):
 
-- pillar encoder + UNet backbone shared with the flow models (MXU convs);
+- pillar encoder + UNet backbone shared with the flow models;
 - a center heatmap head (penalty-reduced focal loss on gaussian-splatted
   GT centers, CenterNet-style) + per-pillar box regression head
   (sub-voxel offset, z0, log-extent, sin/cos yaw);
@@ -22,12 +22,12 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, List, Optional, Tuple
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-from himo_tpu.models.feedforward import PointFeatureNet, UNet
+from himo_tpu.models.feedforward import point_feature_net, unet
+from himo_tpu.models.layers import Module, Params, conv, relu
 from himo_tpu.ops.voxelize import (
     PillarConfig,
     scatter_max,
@@ -48,25 +48,27 @@ class DetNetConfig:
     dtype: str = "float32"
 
 
-class DetNet(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class DetNet(Module):
     """Pillar-UNet center-point detector: heatmap + box regression maps."""
 
     config: DetNetConfig
 
-    @nn.compact
-    def __call__(self, points, valid):
+    def __call__(self, p: Params, points, valid):
         cfg = self.config
         dtype = jnp.bfloat16 if cfg.dtype == "bfloat16" else jnp.float32
         grid = voxelize_pillars(points, valid, cfg.pillar)
-        feat = PointFeatureNet(cfg.point_feat_dim, dtype)(points, grid.centers_offset)
+        feat = point_feature_net(
+            p["PointFeatureNet_0"], points, grid.centers_offset,
+            cfg.point_feat_dim, dtype,
+        )
         feat = jnp.where(grid.in_range[:, None], feat, 0.0)
         image = scatter_max(feat, grid).astype(dtype)
-        x = UNet(cfg.depths, cfg.base_channels * 2, dtype)(image)
-        x = nn.Conv(cfg.base_channels, (3, 3), dtype=dtype)(x)
-        x = nn.relu(x)
-        heat = nn.Conv(1, (1, 1), dtype=jnp.float32,
-                       bias_init=nn.initializers.constant(-2.19))(x)[..., 0]
-        reg = nn.Conv(8, (1, 1), dtype=jnp.float32)(x)
+        x = unet(p["UNet_0"], image, cfg.depths, cfg.base_channels * 2, dtype)
+        x = relu(conv(p["Conv_0"], x, cfg.base_channels, dtype=dtype))
+        heat = conv(p["Conv_1"], x, 1, (1, 1), dtype=jnp.float32,
+                    bias_init=jax.nn.initializers.constant(-2.19))[..., 0]
+        reg = conv(p["Conv_2"], x, 8, (1, 1), dtype=jnp.float32)
         return heat, reg  # (H, W), (H, W, 8)
 
 

@@ -3,7 +3,7 @@
 The reference's detection story (downstream/README.md:8-18) runs OpenPCDet
 TransFusion-L over raw vs HiMo-compensated clouds via ``tools/h5sf.py
 --flow_mode seflowpp_best`` and compares detection quality. This module
-provides a TPU-native harness with the same experimental contract — detect
+provides a JAX harness with the same experimental contract — detect
 on raw or de-skewed clouds, score against GT boxes derived from the scene's
 instance labels — using a geometric detector:
 

@@ -3,7 +3,7 @@
 The reference's downstream seg story (downstream/README.md:29-52) runs
 WaffleIron ``eval_h5.py`` over raw vs HiMo-compensated clouds and writes
 per-point label keys ``seg_{flow_mode}`` into the .h5 scenes, which
-``eval_seg`` then scores. This module provides the TPU-native equivalent:
+``eval_seg`` then scores. This module provides the JAX equivalent:
 
 - :class:`SegNet` — a pillar-UNet point classifier (shares the flow models'
   encoder/backbone design; per-point head over gathered pillar features);
@@ -22,12 +22,12 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, Optional
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-from himo_tpu.models.feedforward import ConvBlock, PointFeatureNet, UNet
+from himo_tpu.models.feedforward import point_feature_net, unet
+from himo_tpu.models.layers import Module, Params, dense, relu
 from himo_tpu.ops.voxelize import PillarConfig, gather_pillars, scatter_max, voxelize_pillars
 
 
@@ -41,26 +41,27 @@ class SegConfig:
     dtype: str = "float32"
 
 
-class SegNet(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class SegNet(Module):
     """Pillar-UNet per-point classifier."""
 
     config: SegConfig
 
-    @nn.compact
-    def __call__(self, points, valid):
+    def __call__(self, p: Params, points, valid):
         cfg = self.config
         dtype = jnp.bfloat16 if cfg.dtype == "bfloat16" else jnp.float32
         grid = voxelize_pillars(points, valid, cfg.pillar)
-        feat = PointFeatureNet(cfg.point_feat_dim, dtype)(points, grid.centers_offset)
+        feat = point_feature_net(
+            p["PointFeatureNet_0"], points, grid.centers_offset,
+            cfg.point_feat_dim, dtype,
+        )
         feat = jnp.where(grid.in_range[:, None], feat, 0.0)
         image = scatter_max(feat, grid).astype(dtype)
-        out_img = UNet(cfg.depths, cfg.base_channels * 2, dtype)(image)
+        out_img = unet(p["UNet_0"], image, cfg.depths, cfg.base_channels * 2, dtype)
         pillar_feat = gather_pillars(out_img, grid).astype(dtype)
         x = jnp.concatenate([pillar_feat, feat], axis=-1)
-        x = nn.Dense(cfg.base_channels * 2, dtype=dtype)(x)
-        x = nn.relu(x)
-        logits = nn.Dense(cfg.num_classes, dtype=jnp.float32)(x)
-        return logits
+        x = relu(dense(p["Dense_0"], x, cfg.base_channels * 2, dtype))
+        return dense(p["Dense_1"], x, cfg.num_classes, jnp.float32)
 
 
 def make_seg_model(**overrides):

@@ -2,7 +2,7 @@
 
 Per-instance evaluation clouds are tiny and ragged (tens to thousands of
 points), so eval-time Chamfer stays on host with KD-trees — it is not the perf
-path (SURVEY.md §7 step 2). The on-device streaming-min kernel in
+path (SURVEY.md §7 step 2). The on-device NN search in
 :mod:`himo_tpu.ops.nn` serves the training losses instead.
 
 Definition (reference eval.py:50-62):

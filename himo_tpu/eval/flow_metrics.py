@@ -5,7 +5,7 @@ HiMo CDE/MPE instance metrics; the standard scene-flow numbers (EPE, AccS,
 AccR, three-way split) live in its absent OpenSceneFlow submodule (the AV2
 scene-flow-challenge definitions; the reference consumes them through
 ``model=seflowpp`` training logs, /root/reference/README.md:50-53). This
-module provides them TPU-era:
+module provides them:
 
 - three-way split per point: Foreground Dynamic / Foreground Static /
   Background Static (foreground = labeled category, dynamic = GT motion

@@ -36,7 +36,7 @@ def init_mlp(
 
 
 def apply_mlp(params: Params, x: jax.Array) -> jax.Array:
-    """Forward pass; points batched along axis 0 so matmuls hit the MXU."""
+    """Forward pass; points batched along axis 0 so each layer is one matmul."""
     h = x
     for w, b in params[:-1]:
         h = jax.nn.relu(h @ w + b)

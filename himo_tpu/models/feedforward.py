@@ -2,15 +2,17 @@
 architecture (SeFlow++ = DeFlow++ net + SSL training, reference
 assets/slurm/ssl-train-av2.sh:31-34: ``model=deflowpp``).
 
-TPU-first design:
-- PointPillars-style dynamic voxelization via segment reductions (no CUDA
-  scatter; :mod:`himo_tpu.ops.voxelize`), grid 512x512 @ 0.2 m matching the
+Design:
+- PointPillars-style dynamic voxelization via segment reductions
+  (:mod:`himo_tpu.ops.voxelize`), grid 512x512 @ 0.2 m matching the
   reference training config (``voxel_size=[0.2,0.2,6]``,
   ``point_cloud_range=[-51.2,...]``).
-- NHWC convolutional UNet backbone — large batched convs on the MXU.
+- NHWC convolutional UNet backbone.
 - Per-point decoders gather pillar features back and run dense MLP / GRU
-  stacks over N-point batches (matmuls, MXU again).
+  stacks over N-point batches.
 - Everything static-shape: padded clouds + valid masks end to end.
+- Plain-JAX layers (:mod:`himo_tpu.models.layers`) with flax.linen's
+  parameter tree, so checkpoints keep their layout.
 
 Two sweeps (pc0 ego-compensated into the pc1 frame, plus pc1) build two
 pseudo-images that the backbone consumes concatenated; a third history sweep
@@ -22,32 +24,18 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Sequence, Tuple
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
+from himo_tpu.models.layers import Module, Params, conv, dense, group_norm, gru_cell, relu
 from himo_tpu.models.registry import register_estimator
-from himo_tpu.ops.mxu_scatter import gather_rows_sorted, scatter_sum_sorted
-from himo_tpu.ops.nn import take_rows
 from himo_tpu.ops.refine import RefineConfig
 from himo_tpu.ops.voxelize import (
     PillarConfig,
     gather_pillars,
     scatter_max,
-    scatter_max_multi,
     voxelize_pillars,
 )
-
-
-def _take_cols(a: jax.Array, order: jax.Array) -> jax.Array:
-    """Reorder (N, C) rows by a permutation.
-
-    Measured on-chip (kernel_bench HIMO_BENCH_PRIMS=1): one ROW take costs
-    7.9 ns/row with width nearly free, while C separate 1-D takes cost
-    C x 7.9 ns/row — 1-D gathers do NOT vectorize across columns. The
-    original per-column composition (this helper's round-3 premise) was
-    96x off; keep the plain row take."""
-    return jnp.take(a, order, axis=0)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,12 +75,6 @@ class FlowNetConfig:
     # indistinguishable from uncovered movers by value, so they fall
     # through to the gated residual, which prior_flow_loss trains to zero.
     prior_trust: bool = False
-    # Pillar pooling: 'max' (PointPillars-classic; scalar-store Pallas
-    # kernels, ~21 ns/point floor) or 'mean_sorted' (points argsorted by
-    # pillar id per sweep; mean pooling + feature gather ride the MXU
-    # one-hot matmul kernels in ops/mxu_scatter.py — a few cycles/point,
-    # and the backward is matmuls too).
-    pooling: str = "max"
     # In-net per-object rigid decoding (ops/components.py): the UNet emits a
     # per-pillar dynamic logit image; its connected blobs (on-device CC) pool
     # one rigid translation each from the per-point decoder output, and
@@ -119,7 +101,7 @@ class FlowNetConfig:
     # 0.36-0.53 m at every speed; the error was entirely the regression).
     # corr[dy,dx](y,x) = <f0(y,x), f1(y+dy,x+dx)>/C on the PFN pillar
     # images gives the backbone explicit matching evidence: all shifts +
-    # elementwise multiplies (VPU, ~1 ms/frame at 512^2), no gathers.
+    # elementwise multiplies, no gathers.
     # Two levels: fine (inject after UNet level 0, stride 2, radius
     # corr_radii[0]) and coarse (after the last encoder level, radius
     # corr_radii[1]) — at the production 0.2 m grid that is +-1.6 m at
@@ -148,48 +130,30 @@ class FlowNetConfig:
     gate_head: bool = False
 
 
-class PointFeatureNet(nn.Module):
+def point_feature_net(p: Params, points, offsets, dim: int, dtype, extra=None,
+                      extra_dim: int = 0):
     """Per-point embedding before pillar pooling (PFN-lite).
 
     ``extra`` optionally appends conditioning channels — the
     prior-conditioned SeFlow++ variant feeds the verified cluster
     translation prior here (sweep 0 only; other sweeps pass zeros)."""
-
-    dim: int
-    dtype: jnp.dtype
-    extra_dim: int = 0
-
-    @nn.compact
-    def __call__(self, points, offsets, extra=None):
-        # features: xyz, offset-to-pillar-center, radial distance
-        r = jnp.linalg.norm(points[:, :2], axis=1, keepdims=True)
-        cols = [points[:, :3], offsets, r]
-        if self.extra_dim:
-            if extra is None:
-                extra = jnp.zeros((points.shape[0], self.extra_dim), self.dtype)
-            cols.append(extra)
-        x = jnp.concatenate(cols, axis=1).astype(self.dtype)
-        x = nn.Dense(self.dim, dtype=self.dtype)(x)
-        x = nn.relu(x)
-        x = nn.Dense(self.dim, dtype=self.dtype)(x)
-        return nn.relu(x)
+    # features: xyz, offset-to-pillar-center, radial distance
+    r = jnp.linalg.norm(points[:, :2], axis=1, keepdims=True)
+    cols = [points[:, :3], offsets, r]
+    if extra_dim:
+        if extra is None:
+            extra = jnp.zeros((points.shape[0], extra_dim), dtype)
+        cols.append(extra)
+    x = jnp.concatenate(cols, axis=1).astype(dtype)
+    x = relu(dense(p["Dense_0"], x, dim, dtype))
+    return relu(dense(p["Dense_1"], x, dim, dtype))
 
 
-class ConvBlock(nn.Module):
-    channels: int
-    dtype: jnp.dtype
-    stride: int = 1
-
-    @nn.compact
-    def __call__(self, x):
-        x = nn.Conv(
-            self.channels, (3, 3), strides=(self.stride, self.stride), dtype=self.dtype
-        )(x)
-        x = nn.GroupNorm(num_groups=8, dtype=self.dtype)(x)
-        x = nn.relu(x)
-        x = nn.Conv(self.channels, (3, 3), dtype=self.dtype)(x)
-        x = nn.GroupNorm(num_groups=8, dtype=self.dtype)(x)
-        return nn.relu(x)
+def conv_block(p: Params, x, channels: int, dtype, stride: int = 1):
+    x = conv(p["Conv_0"], x, channels, strides=(stride, stride), dtype=dtype)
+    x = relu(group_norm(p["GroupNorm_0"], x, 8, dtype))
+    x = conv(p["Conv_1"], x, channels, dtype=dtype)
+    return relu(group_norm(p["GroupNorm_1"], x, 8, dtype))
 
 
 def _upsample_nearest(x, h: int, w: int):
@@ -197,8 +161,8 @@ def _upsample_nearest(x, h: int, w: int):
 
     Integer scale factors go through broadcast + reshape (pure data
     movement XLA fuses well); ``jax.image.resize``'s gather lowering
-    measured 4.6 ms at 512x512x128 on v5e vs ~1 ms for this path. Falls
-    back to resize for non-integer ratios."""
+    is cheaper than the gather lowering. Falls back to resize for
+    non-integer ratios."""
     xh, xw = x.shape[-3], x.shape[-2]
     if h % xh == 0 and w % xw == 0:
         fy, fx = h // xh, w // xw
@@ -225,17 +189,12 @@ def _bev_correlation(f0: jax.Array, f1: jax.Array, radius: int) -> jax.Array:
 
     ``corr[..., k] = <f0(y, x), f1(y+dy, x+dx)> / C`` for every offset in
     the (2r+1)^2 Chebyshev window — zero-padded shift + multiply + channel
-    mean: pure VPU data movement, no gathers. Out-of-grid offsets read 0
-    (an unrolled ``jnp.roll`` version OOM'd the 512^2 f32 train step:
-    roll = concat+slice, and XLA materialized 253 MB lane-padded slice
-    temps per offset in the backward — 23.2 G vs 15.75 G HBM, measured
-    round 5). ``lax.map`` over offsets keeps one offset's temporaries live
-    at a time and accumulates the f1 gradient in the scan carry; the body
-    is checkpointed so the backward REcomputes each step's shifted slice
-    from the loop-invariant padded image instead of stacking all (2r+1)^2
-    of them as saved residuals (f32[81,8,256,256,32] = 21.7 GB, the second
-    measured OOM); the body is a (H, W, C) FMA + reduce, far too small to
-    miss the VPU."""
+    mean, no gathers. Out-of-grid offsets read 0. ``lax.map`` over offsets
+    keeps one offset's temporaries live at a time and accumulates the f1
+    gradient in the scan carry; the body is checkpointed so the backward
+    recomputes each step's shifted slice from the loop-invariant padded
+    image instead of stacking all (2r+1)^2 of them as saved residuals
+    (f32[81,8,256,256,32] = 21.7 GB at the 512^2 batch-8 train step)."""
     h, w, c = f0.shape
     win = 2 * radius + 1
     f1p = jnp.pad(f1, ((radius, radius), (radius, radius), (0, 0)))
@@ -254,7 +213,8 @@ def _bev_correlation(f0: jax.Array, f1: jax.Array, radius: int) -> jax.Array:
     return jnp.moveaxis(cols, 0, -1)
 
 
-class UNet(nn.Module):
+def unet(p: Params, x, depths: Sequence[int], out_channels: int, dtype,
+         aux_channels: int = 0, extra=None):
     """Pseudo-image backbone with skip connections.
 
     ``aux_channels`` appends UN-activated channels to the final conv (the
@@ -263,88 +223,64 @@ class UNet(nn.Module):
     aux_channels > 0, ``features`` alone otherwise.
 
     ``extra`` maps encoder level index -> a feature image at that level's
-    resolution, concatenated after the level's ConvBlock (the correlation
+    resolution, concatenated after the level's conv block (the correlation
     cost volumes enter here, so both the deeper encoder and the decoder
     skip see the matching evidence)."""
-
-    depths: Sequence[int]
-    out_channels: int
-    dtype: jnp.dtype
-    aux_channels: int = 0
-
-    @nn.compact
-    def __call__(self, x, extra=None):
-        skips = []
-        for li, ch in enumerate(self.depths):
-            x = ConvBlock(ch, self.dtype, stride=2)(x)
-            if extra is not None and li in extra:
-                x = jnp.concatenate([x, extra[li].astype(x.dtype)], axis=-1)
-            skips.append(x)
-        for ch, skip in zip(reversed(self.depths), reversed(skips)):
-            if x is not skip:
-                x = _upsample_nearest(x, skip.shape[-3], skip.shape[-2])
-                x = jnp.concatenate([x, skip], axis=-1)
-            x = ConvBlock(ch, self.dtype)(x)
-        x = _upsample_nearest(x, x.shape[-3] * 2, x.shape[-2] * 2)
-        x = nn.Conv(
-            self.out_channels + self.aux_channels, (3, 3), dtype=self.dtype
-        )(x)
-        if self.aux_channels:
-            return nn.relu(x[..., : self.out_channels]), x[..., self.out_channels :]
-        return nn.relu(x)
+    skips = []
+    k = 0
+    for li, ch in enumerate(depths):
+        x = conv_block(p[f"ConvBlock_{k}"], x, ch, dtype, stride=2)
+        k += 1
+        if extra is not None and li in extra:
+            x = jnp.concatenate([x, extra[li].astype(x.dtype)], axis=-1)
+        skips.append(x)
+    for ch, skip in zip(reversed(depths), reversed(skips)):
+        if x is not skip:
+            x = _upsample_nearest(x, skip.shape[-3], skip.shape[-2])
+            x = jnp.concatenate([x, skip], axis=-1)
+        x = conv_block(p[f"ConvBlock_{k}"], x, ch, dtype)
+        k += 1
+    x = _upsample_nearest(x, x.shape[-3] * 2, x.shape[-2] * 2)
+    x = conv(p["Conv_0"], x, out_channels + aux_channels, dtype=dtype)
+    if aux_channels:
+        return relu(x[..., :out_channels]), x[..., out_channels:]
+    return relu(x)
 
 
-class DeFlowGRUDecoder(nn.Module):
+def deflow_gru_decoder(p: Params, pillar_feat, point_feat, hidden: int,
+                       iters: int, dtype, gate: bool = False):
     """Iterative voxel-to-point refinement (DeFlow-style GRU).
 
     With ``gate=True`` the head emits 4 channels — (flow xyz, gate logit) —
     from the shared refined state, so the dynamic evidence the flow needs is
     the same evidence the gate reads."""
-
-    hidden: int
-    iters: int
-    dtype: jnp.dtype
-    gate: bool = False
-
-    @nn.compact
-    def __call__(self, pillar_feat, point_feat):
-        h = nn.Dense(self.hidden, dtype=self.dtype)(pillar_feat)
-        inp = nn.Dense(self.hidden, dtype=self.dtype)(point_feat)
-        gru = nn.GRUCell(features=self.hidden, dtype=self.dtype)
-        for _ in range(self.iters):
-            h, _ = gru(h, inp)
-        x = nn.Dense(self.hidden, dtype=self.dtype)(h)
-        x = nn.relu(x)
-        out = nn.Dense(4 if self.gate else 3, dtype=jnp.float32)(x)
-        return (out[:, :3], out[:, 3]) if self.gate else out
+    h = dense(p["Dense_0"], pillar_feat, hidden, dtype)
+    inp = dense(p["Dense_1"], point_feat, hidden, dtype)
+    for _ in range(iters):
+        h = gru_cell(p["GRUCell_0"], h, inp, dtype)
+    x = relu(dense(p["Dense_2"], h, hidden, dtype))
+    out = dense(p["Dense_3"], x, 4 if gate else 3, jnp.float32)
+    return (out[:, :3], out[:, 3]) if gate else out
 
 
-class LinearDecoder(nn.Module):
+def linear_decoder(p: Params, pillar_feat, point_feat, hidden: int, dtype,
+                   gate: bool = False):
     """FastFlow3D-style MLP decoder."""
-
-    hidden: int
-    dtype: jnp.dtype
-    gate: bool = False
-
-    @nn.compact
-    def __call__(self, pillar_feat, point_feat):
-        x = jnp.concatenate([pillar_feat, point_feat], axis=-1)
-        x = nn.Dense(self.hidden, dtype=self.dtype)(x)
-        x = nn.relu(x)
-        x = nn.Dense(self.hidden, dtype=self.dtype)(x)
-        x = nn.relu(x)
-        out = nn.Dense(4 if self.gate else 3, dtype=jnp.float32)(x)
-        return (out[:, :3], out[:, 3]) if self.gate else out
+    x = jnp.concatenate([pillar_feat, point_feat], axis=-1)
+    x = relu(dense(p["Dense_0"], x, hidden, dtype))
+    x = relu(dense(p["Dense_1"], x, hidden, dtype))
+    out = dense(p["Dense_2"], x, 4 if gate else 3, jnp.float32)
+    return (out[:, :3], out[:, 3]) if gate else out
 
 
-class SceneFlowNet(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class SceneFlowNet(Module):
     """Full network: pillars -> UNet -> per-point flow for sweep 0."""
 
     config: FlowNetConfig
 
-    @nn.compact
     def __call__(
-        self, sweeps, valids, prior=None, with_gate: bool = False,
+        self, p: Params, sweeps, valids, prior=None, with_gate: bool = False,
         soft_gate: bool = False, with_aux: bool = False,
         refine: Optional[bool] = None, dts=None,
     ):
@@ -376,58 +312,27 @@ class SceneFlowNet(nn.Module):
         """
         cfg = self.config
         dtype = jnp.bfloat16 if cfg.dtype == "bfloat16" else jnp.float32
-        pfn = PointFeatureNet(
-            cfg.point_feat_dim, dtype, extra_dim=3 if cfg.prior_feat else 0
-        )
-        sorted_mode = cfg.pooling == "mean_sorted"
+        pfn = p["PointFeatureNet_0"]
+        extra_dim = 3 if cfg.prior_feat else 0
         h, w = cfg.pillar.grid_shape
-        hw = h * w
 
         images = []
         grids = []
         feats = []
-        sweep0 = None  # (order, spids, in_range_sorted) for the decoder
         for idx, (pc, valid) in enumerate(zip(sweeps, valids)):
             grid = voxelize_pillars(pc, valid, cfg.pillar)
             extra = None
             if cfg.prior_feat and idx == 0 and prior is not None:
                 extra = prior.astype(dtype)
-            if sorted_mode:
-                # Reorder the RAW per-point columns by pillar id (1-D takes;
-                # 2-D row takes are per-row latency-bound) so the pooling
-                # and gather ride the sorted-stream MXU kernels.
-                order = jnp.argsort(grid.pillar_ids).astype(jnp.int32)
-                spids = jnp.take(grid.pillar_ids, order)
-                pc_s = _take_cols(pc[:, :3], order)
-                off_s = _take_cols(grid.centers_offset, order)
-                in_s = jnp.take(grid.in_range, order)
-                extra_s = None if extra is None else _take_cols(extra, order)
-                f = pfn(pc_s, off_s, extra_s)
-                f = jnp.where(in_s[:, None], f, 0.0)
-                aug = jnp.concatenate(
-                    [f.astype(jnp.float32), in_s.astype(jnp.float32)[:, None]],
-                    axis=1,
-                )
-                out = scatter_sum_sorted(
-                    spids, aug, num_rows=hw,
-                    mxu_bf16=dtype == jnp.bfloat16,
-                )
-                sums, counts = out[:hw, :-1], out[:hw, -1]
-                img = sums / jnp.maximum(counts, 1.0)[:, None]
-                images.append(img.reshape(h, w, -1).astype(dtype))
-                if idx == 0:
-                    sweep0 = (order, spids)
-            else:
-                f = pfn(pc, grid.centers_offset, extra)
-                f = jnp.where(grid.in_range[:, None], f, 0.0)
-                images.append(f)  # scattered below in one fused call
+            f = point_feature_net(
+                pfn, pc, grid.centers_offset, cfg.point_feat_dim, dtype,
+                extra, extra_dim,
+            )
+            f = jnp.where(grid.in_range[:, None], f, 0.0)
             grids.append(grid)
             feats.append(f)
 
-        if not sorted_mode:
-            # One fused scatter for all sweeps: sort/band prep and launch
-            # overhead paid once (ops/voxelize.py scatter_max_multi).
-            images = scatter_max_multi(images, grids)
+        images = [scatter_max(f, g) for f, g in zip(feats, grids)]
         x = jnp.concatenate(images, axis=-1).astype(dtype)
         extra = None
         if cfg.corr_volume:
@@ -451,10 +356,13 @@ class SceneFlowNet(nn.Module):
             else:
                 extra[0] = fine
                 extra[last] = coarse
-        unet = UNet(
-            cfg.depths, cfg.base_channels * 2, dtype,
-            aux_channels=1 if cfg.instance_head else 0,
-        )
+
+        def backbone():
+            return unet(
+                p["UNet_0"], x, cfg.depths, cfg.base_channels * 2, dtype,
+                aux_channels=1 if cfg.instance_head else 0, extra=extra,
+            )
+
         slot_img = None
         dyn_logit = None
         if cfg.instance_head:
@@ -465,7 +373,7 @@ class SceneFlowNet(nn.Module):
                 connected_components_grid,
             )
 
-            out_img, dyn_raw = unet(x, extra)
+            out_img, dyn_raw = backbone()
             dyn_logit = dyn_raw[..., 0].astype(jnp.float32)
             s = cfg.instance_stride
             # Coarse occupancy = strided max-pool of the dynamic logits
@@ -486,48 +394,28 @@ class SceneFlowNet(nn.Module):
                 slot_enc.astype(jnp.float32)[..., None], h, w
             )
         else:
-            out_img = unet(x, extra)
+            out_img = backbone()
 
         slot_pt = None
-        if sorted_mode:
-            order0, spids0 = sweep0
-            flat = out_img.reshape(hw, -1).astype(jnp.float32)
-            if slot_img is not None:
-                # The slot rides the pillar gather as one extra channel
-                # (row-take width is nearly free — see _take_cols note).
-                flat = jnp.concatenate([flat, slot_img.reshape(hw, 1)], axis=1)
-            flat = jnp.concatenate(
-                [flat, jnp.zeros((8, flat.shape[1]), flat.dtype)]
-            )
-            gathered = gather_rows_sorted(
-                spids0, flat, num_rows=hw,
-                mxu_bf16=dtype == jnp.bfloat16,
-            )
-            if slot_img is not None:
-                pillar_feat = gathered[:, :-1].astype(dtype)
-                slot_pt = gathered[:, -1].astype(jnp.float32)
-            else:
-                pillar_feat = gathered.astype(dtype)
+        img = out_img
+        if slot_img is not None:
+            img = jnp.concatenate([out_img, slot_img.astype(out_img.dtype)], axis=-1)
+        gathered = gather_pillars(img, grids[0])
+        if slot_img is not None:
+            pillar_feat = gathered[..., :-1].astype(dtype)
+            slot_pt = gathered[..., -1].astype(jnp.float32)
         else:
-            img = out_img
-            if slot_img is not None:
-                img = jnp.concatenate(
-                    [out_img, slot_img.astype(out_img.dtype)], axis=-1
-                )
-            gathered = gather_pillars(img, grids[0])
-            if slot_img is not None:
-                pillar_feat = gathered[..., :-1].astype(dtype)
-                slot_pt = gathered[..., -1].astype(jnp.float32)
-            else:
-                pillar_feat = gathered.astype(dtype)
+            pillar_feat = gathered.astype(dtype)
         point_feat = feats[0]
         if cfg.decoder == "deflow":
-            out = DeFlowGRUDecoder(
-                cfg.base_channels * 2, cfg.gru_iters, dtype, gate=cfg.gate_head
-            )(pillar_feat, point_feat)
+            out = deflow_gru_decoder(
+                p["DeFlowGRUDecoder_0"], pillar_feat, point_feat,
+                cfg.base_channels * 2, cfg.gru_iters, dtype, gate=cfg.gate_head,
+            )
         else:
-            out = LinearDecoder(cfg.base_channels * 2, dtype, gate=cfg.gate_head)(
-                pillar_feat, point_feat
+            out = linear_decoder(
+                p["LinearDecoder_0"], pillar_feat, point_feat,
+                cfg.base_channels * 2, dtype, gate=cfg.gate_head,
             )
         gate_logit = None
         if cfg.gate_head:
@@ -535,27 +423,6 @@ class SceneFlowNet(nn.Module):
         else:
             flow = out
         flow = flow.astype(jnp.float32)
-        if sorted_mode:
-            # Un-sort back to input point order. take_rows' transpose runs
-            # through the Pallas sum-scatter (XLA's unsorted scatter-add of
-            # the incoming gradient would cost ~70 ns/point).
-            inv = jnp.argsort(sweep0[0]).astype(jnp.int32)
-            extras = []
-            if gate_logit is not None:
-                extras.append(gate_logit[:, None])
-            if slot_pt is not None:
-                extras.append(slot_pt[:, None])
-            cols = take_rows(
-                jnp.concatenate([flow] + extras, axis=1) if extras else flow,
-                inv,
-            )
-            flow = cols[:, :3]
-            c = 3
-            if gate_logit is not None:
-                gate_logit = cols[:, c]
-                c += 1
-            if slot_pt is not None:
-                slot_pt = cols[:, c]
         slot = None
         if cfg.instance_head:
             # Per-object rigid pooling: member points (in a slotted

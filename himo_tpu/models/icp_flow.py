@@ -5,10 +5,10 @@ tools/view_instance.py:155-157): dynamic points are clustered, and each
 cluster is rigidly registered against the next sweep with ICP; its rigid
 transform becomes the flow of its points (static points keep zero residual).
 
-TPU-first split:
+Host/device split:
 - clustering stays on host (DBSCAN, a data-prep-scale cost);
 - ALL cluster ICPs run as one jitted, vmapped program: every iteration does
-  a batched correspondence search via the streaming NN-argmin kernel and a
+  a batched correspondence search via the NN-argmin search and a
   weighted Kabsch (3x3 SVD) per cluster — ``lax.scan`` over iterations,
   static cluster count/capacity.
 """
@@ -103,7 +103,12 @@ def icp_register_clusters(
     frac = it / jnp.maximum(config.icp_iters - 1.0, 1.0)
     caps2 = (coarse * (fine / coarse) ** frac) ** 2  # (icp_iters,)
 
+    pc1 = pc1.astype(jnp.float32)
+
     def one(pts, mask, t0):
+        # float32 carry whatever the inputs' dtype (jax_enable_x64).
+        pts = pts.astype(jnp.float32)
+
         def body(carry, cap2):
             rot, t = carry
             moved = pts @ rot.T + t
@@ -111,9 +116,10 @@ def icp_register_clusters(
             corr = pc1[idx]
             w = (mask & (d2 < cap2)).astype(jnp.float32)
             rot2, t2 = weighted_kabsch(pts, corr, w)
-            return (rot2, t2), d2
+            return (rot2.astype(jnp.float32), t2.astype(jnp.float32)), d2
 
-        (rot, t), _ = jax.lax.scan(body, (jnp.eye(3), t0), caps2)
+        init = (jnp.eye(3, dtype=jnp.float32), t0.astype(jnp.float32))
+        (rot, t), _ = jax.lax.scan(body, init, caps2)
         flow = pts @ rot.T + t - pts
         return jnp.where(mask[:, None], flow, 0.0), rot, t
 

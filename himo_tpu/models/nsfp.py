@@ -4,7 +4,7 @@ Capability parity with the reference's ``model=nsfp`` surface (README.md:52,
 h5 key ``nsfp`` at tools/view_instance.py:155): a coordinate MLP is optimized
 per frame pair against a bidirectional truncated Chamfer between the warped
 ego-compensated pc0 and pc1. The whole Adam loop is one ``lax.scan`` on
-device; NN distances come from the streaming Pallas kernel
+device; NN distances come from the NN search
 (:mod:`himo_tpu.ops.nn`), so no KD-trees and no host round-trips.
 
 Inputs are fixed-size padded clouds with validity masks (XLA static shapes);

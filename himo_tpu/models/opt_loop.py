@@ -83,7 +83,9 @@ def run_adam(
     def step(p, s, t):
         loss, grads = jax.value_and_grad(lambda pp: call(pp, t))(p)
         updates, s = opt.update(grads, s, p)
-        return optax.apply_updates(p, updates), s, loss
+        # float32 loss: the while-loop carry below is float32 whatever the
+        # params' dtype (float64 params under jax_enable_x64).
+        return optax.apply_updates(p, updates), s, loss.astype(jnp.float32)
 
     if not patience:
 

@@ -2,7 +2,7 @@
 
 The in-net analog of the host matcher's DBSCAN: the network predicts a
 per-pillar dynamic logit image, this module labels its connected blobs and
-pools one rigid translation per blob — entirely on the TPU, inside jit,
+pools one rigid translation per blob — entirely on the device, inside jit,
 with static shapes. It gives the feed-forward flagship per-OBJECT decoding
 capacity: the pillar decoder's spatially smooth per-point residual cannot
 express "exactly zero here, 1.5 m next pillar" (measured round 4), but a
@@ -17,14 +17,14 @@ structure into the architecture so a pure feed-forward pass (the
 reference's deployment profile, /root/reference/README.md:46-53) recovers
 it at inference without any host clustering.
 
-TPU design notes:
+Design notes:
 - Labels propagate by iterated windowed MIN over the occupancy grid
-  (``lax.reduce_window`` — pure VPU, no scalar gathers). A window of
+  (``lax.reduce_window``, no gathers). A window of
   ``2r+1`` connects cells within Chebyshev distance ``r`` per step (the
   grid analog of DBSCAN's ``eps``); empty cells reset to the sentinel each
   step so labels can only travel through occupied cells.
 - Component roots compact to a fixed slot budget via one cumsum; per-point
-  pooling is two one-hot matmuls (MXU) — no unsorted scatters anywhere.
+  pooling is two one-hot matmuls — no unsorted scatters anywhere.
 """
 
 from __future__ import annotations
@@ -107,7 +107,7 @@ def pool_by_slot(
 ) -> Tuple[jax.Array, jax.Array]:
     """Weighted per-component mean, distributed back to the points.
 
-    Two one-hot matmuls (MXU; HIGHEST precision so bf16 truncation cannot
+    Two one-hot matmuls (HIGHEST precision so bf16/TF32 rounding cannot
     bias an object's pooled translation) — no scatters. Returns
     ``(pooled (N, C), ok (N,) bool)`` where ``ok`` marks points whose
     component accumulated at least ``min_weight`` of pooling mass (pooled

@@ -8,7 +8,7 @@ exactly with the separable lower-envelope identity
 
     dt(x) = min_y ( f(y) + (x - y)^2 * spacing^2 )
 
-applied per axis — each 1-D envelope is a broadcast (L, L) min on the VPU,
+applied per axis — each 1-D envelope is a broadcast (L, L) min,
 batched over rows with ``lax.map`` to bound peak memory. No sequential
 Felzenszwalb scans, no data-dependent control flow: everything is static
 shapes and dense vector math, which is exactly what XLA wants.

@@ -2,7 +2,7 @@
 
 The reference's .h5 scenes carry a ``ground_mask`` written during
 preprocessing by the absent OpenSceneFlow submodule (SURVEY.md §2.5, consumed
-at eval.py:290). This op fills that role TPU-style: rasterize the cloud into
+at eval.py:290). This op fills that role on the device: rasterize the cloud into
 BEV cells, take each cell's minimum z (a segment-min — scatter-free), smooth
 with a 3x3 neighborhood min (ground is locally planar), and mark points
 within ``threshold`` above the local floor as ground.

@@ -1,136 +1,21 @@
-"""Streaming k-nearest-neighbor distances (small k) — Pallas on TPU.
+"""k-nearest-neighbor distances (small k).
 
-Extends the min-only streaming kernel of :mod:`himo_tpu.ops.nn` to the
-k-smallest squared distances per query (the CUDA KNN role inside the
-reference's absent OpenSceneFlow submodule, SURVEY §2.9 — richer SSL/ICP
-losses consume multi-neighbor distances).
-
-Mechanics: each (query-tile, reference-tile) grid step computes the same
-MXU distance block as the NN kernel, extracts its k smallest entries per row
-by k repeated (min, mask-out) passes on the VPU, then merges them into the
-running per-query k-best buffer with another k selection passes over the 2k
-candidate columns. Cost ≈ the NN kernel + 2k VPU passes per block — for
-k<=8 the MXU dot still dominates at production tile sizes.
+Extends the NN search of :mod:`himo_tpu.ops.nn` to the k smallest squared
+distances per query (the CUDA KNN role inside the reference's absent
+OpenSceneFlow submodule, SURVEY §2.9 — richer SSL/ICP losses consume
+multi-neighbor distances). Same difference form and query chunking as the
+NN search, with ``lax.top_k`` in place of the min.
 
 Distances only (no indices): the loss consumers (smoothed chamfer,
-neighbor-consistency terms) need the k distances, and index tracking would
-triple the fold state.
+neighbor-consistency terms) need the k distances.
 """
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from himo_tpu.ops.nn import _K, _QT, _RT, _on_tpu, _pad_coords
-
-_INF = 3.0e38
-
-
-def _block_k_smallest(d2: jax.Array, k: int) -> jax.Array:
-    """(QT, RT) -> (QT, k) smallest entries per row, ascending.
-
-    k passes of (row-min, mask-every-tie-out). Ties collapse to one slot per
-    pass — for distance losses that is the right semantics anyway (duplicate
-    reference points contribute once per pass)."""
-    cols = []
-    cur = d2
-    for _ in range(k):
-        m = jnp.min(cur, axis=1)
-        cols.append(m)
-        cur = jnp.where(cur <= m[:, None], _INF, cur)
-    return jnp.stack(cols, axis=1)
-
-
-def _knn_kernel(k: int):
-    def kernel(q_ref, r_ref, o_ref):
-        i = pl.program_id(0)
-        j = pl.program_id(1)
-        q = q_ref[:]
-        r = r_ref[:]
-        dot = jax.lax.dot_general(
-            q,
-            r,
-            dimension_numbers=(((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.float32,
-            precision=jax.lax.Precision.HIGHEST,
-        )
-        qn = jnp.sum(q * q, axis=1, keepdims=True)
-        rn = jnp.sum(r * r, axis=1)[None, :]
-        d2 = qn + rn - 2.0 * dot  # (QT, RT)
-        block = _block_k_smallest(d2, k)  # (QT, k)
-
-        @pl.when(j == 0)
-        def _():
-            o_ref[i, :, :] = block
-
-        @pl.when(j > 0)
-        def _():
-            merged = jnp.concatenate([o_ref[i, :, :], block], axis=1)
-            o_ref[i, :, :] = _block_k_smallest(merged, k)
-
-    return kernel
-
-
-@functools.partial(jax.jit, static_argnames=("k", "interpret"))
-def _knn_padded(q: jax.Array, r: jax.Array, k: int, interpret: bool = False):
-    nq, nr = q.shape[0], r.shape[0]
-    grid = (nq // _QT, nr // _RT)
-    out = pl.pallas_call(
-        _knn_kernel(k),
-        interpret=interpret,
-        out_shape=jax.ShapeDtypeStruct((grid[0], _QT, k), jnp.float32),
-        grid_spec=pl.GridSpec(
-            grid=grid,
-            in_specs=[
-                pl.BlockSpec((_QT, _K), lambda i, j: (i, 0), memory_space=pltpu.VMEM),
-                pl.BlockSpec((_RT, _K), lambda i, j: (j, 0), memory_space=pltpu.VMEM),
-            ],
-            out_specs=pl.BlockSpec(
-                (nq // _QT, _QT, k), lambda i, j: (0, 0, 0), memory_space=pltpu.VMEM
-            ),
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * nq * nr * _K,
-            bytes_accessed=4 * (nq * _K + nr * _K + nq * k),
-            transcendentals=0,
-        ),
-    )(q, r)
-    return out.reshape(-1, k)
-
-
-@functools.partial(jax.jit, static_argnames=("k",))
-def _knn_xla(q: jax.Array, r: jax.Array, k: int):
-    """Streaming XLA fallback: lax.top_k per reference tile, merged."""
-    r_tiles = r.reshape(-1, _RT, _K)
-
-    def per_query_tile(q_tile):
-        qn = jnp.sum(q_tile * q_tile, axis=1, keepdims=True)
-
-        def fold(best, r_tile):
-            dot = jax.lax.dot_general(
-                q_tile,
-                r_tile,
-                dimension_numbers=(((1,), (1,)), ((), ())),
-                preferred_element_type=jnp.float32,
-                precision=jax.lax.Precision.HIGHEST,
-            )
-            rn = jnp.sum(r_tile * r_tile, axis=1)[None, :]
-            d2 = qn + rn - 2.0 * dot
-            tile_k = -jax.lax.top_k(-d2, k)[0]  # (QT, k) ascending
-            merged = jnp.concatenate([best, tile_k], axis=1)
-            return -jax.lax.top_k(-merged, k)[0], None
-
-        init = jnp.full((q_tile.shape[0], k), _INF, jnp.float32)
-        out, _ = jax.lax.scan(fold, init, r_tiles)
-        return out
-
-    q_tiles = q.reshape(-1, _QT, _K)
-    return jax.lax.map(per_query_tile, q_tiles).reshape(-1, k)
+from himo_tpu.ops.nn import _by_query_chunk, _masked, _sq_dist
 
 
 def knn_distance_sq(
@@ -142,21 +27,14 @@ def knn_distance_sq(
 ) -> jax.Array:
     """(N, k) smallest squared distances to the reference cloud, ascending.
 
-    Tie semantics differ slightly from a true top-k: duplicate reference
-    points at EXACTLY equal distance collapse into one slot per selection
-    pass on the Pallas path. Invalid refs never win; invalid queries get 0.
-    Not differentiable (loss consumers wrap it in stop-gradient terms or use
-    the k=1 custom-VJP path of ops.nn)."""
-    from himo_tpu.ops.voxelize import _interpret
-
-    n = query.shape[0]
-    q = _pad_coords(query, _QT, query_valid)
-    r = _pad_coords(ref, _RT, ref_valid)
-    if _on_tpu() or _interpret():
-        d2 = _knn_padded(q, r, k, _interpret())
-    else:
-        d2 = _knn_xla(q, r, k)
-    d2 = jnp.maximum(d2[:n], 0.0)
+    Invalid refs never win; invalid queries get 0. Not differentiable (loss
+    consumers wrap it in stop-gradient terms or use the k=1 custom-VJP path
+    of ops.nn)."""
+    q3 = _masked(query, query_valid).astype(jnp.float32)
+    rt = _masked(ref, ref_valid).astype(jnp.float32).T
+    d2 = _by_query_chunk(
+        lambda qc: -jax.lax.top_k(-_sq_dist(qc, rt), k)[0], q3, rt.shape[1], axis=0
+    )
     if query_valid is not None:
         d2 = jnp.where(query_valid[:, None], d2, 0.0)
     return d2

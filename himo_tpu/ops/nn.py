@@ -1,269 +1,110 @@
-"""On-device nearest-neighbor distances & Chamfer losses (Pallas).
+"""On-device nearest-neighbor distances & Chamfer losses.
 
 The reference's training/optimization losses need NN distances between
 ~100k-point clouds; its eval uses host cKDTrees (eval.py:50-62) and the CUDA
-submodule for training. On TPU we use a streaming-min Pallas kernel instead:
+submodule for training. Here one search serves every entry point
+(``nn_distance_sq``, ``nn_argmin``, ``fused_masked_nn``):
 
-- queries and references are tiled into VMEM blocks;
-- each (query-tile, ref-tile) grid step computes a (TQ, TR) squared-distance
-  block via the MXU (``|q|^2 + |r|^2 - 2 q.r`` with coordinates padded to
-  K=8 lanes) and folds it into a running per-query min;
-- the full (N, M) distance matrix is never materialized — HBM traffic is
-  O(N + M) instead of O(N*M), which is what makes 100k x 100k tractable.
+- the squared distance is taken in difference form ``sum_k (q_k - r_k)^2``:
+  three multiply-adds per pair in exact float32 (the ``|q|^2+|r|^2-2q.r``
+  expansion cancels catastrophically at LiDAR coordinates, and with three
+  coordinates there is no matrix-unit work to gain from it);
+- queries are processed in chunks sized so one chunk spans at most
+  ``_PAIR_BUDGET`` (query, reference) pairs; within a chunk XLA fuses the
+  broadcast-subtract-square-min into one reduction, so the (N, M) distance
+  matrix is never stored.
 
-Padding contract: callers pad clouds to multiples of the tile sizes and mark
-invalid rows by placing them at ``SENTINEL`` (1e6 m away) — no mask plumbing
-inside the kernel, invalid refs simply lose every min race. Distances for
-invalid queries are garbage and must be masked by the caller (the helpers
-here do it).
+Masking: invalid references are moved to ``SENTINEL`` (1e6 m away) or carry
+an additive penalty, so they lose every min race; invalid queries are
+zeroed by the helpers here.
 """
 
 from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-SENTINEL = 1.0e6  # coordinates of padded rows; ~1e12 squared distance
-_QT = 128  # query tile (one VMEM sublane-dim tile)
-# Reference tile: env-tunable (HIMO_NN_RT) — larger tiles amortize per-grid-
-# step overhead at more VMEM per block; read once at import so every padding
-# site in a process agrees. Round-5 chip sweep on the fused masked-min loss
-# shape (B8 16k x 16k, median of 7): RT=256 36.1 ms, 512 26.7, 1024 21.8,
-# 1536 20.4, 2048 19.4, 4096 17.1, 8192 compile-timeout. The isolated win
-# does NOT move the full train step (378 ms at 1024 vs 376 at 4096 — the
-# loss NN is no longer the binding stage), so the default stays at 1024:
-# the last tile size that is both near the flat part of the curve and
-# small enough to avoid padding blowup on sub-4096 clouds.
-import os as _os
-
-_RT = int(_os.environ.get("HIMO_NN_RT", "1024"))
-_K = 8  # coordinate lanes after padding (3 real + 5 zero)
+SENTINEL = 1.0e6  # coordinates of masked rows; ~1e12 squared distance
+_MASK_BIG = 1.0e14  # additive penalty; SENTINEL^2 distances are ~1e12
+_PAIR_BUDGET = 1 << 26  # (query, ref) pairs per chunk
 
 
-def _argmin_lanes(mat, vals):
-    """Index of the per-row min along the LANE axis, given ``vals`` =
-    ``min(mat, axis=1)``: compare + iota + int-min. Mosaic lowers
-    ``jnp.argmin`` to a variadic cross-lane reduce that measured ~2x the
-    plain min pass (TODO.md); this form is three cheap VPU passes and
-    keeps argmin's first-minimum tie rule."""
-    lane = jax.lax.broadcasted_iota(jnp.int32, mat.shape, 1)
-    hit = mat <= vals[:, None]
-    return jnp.min(jnp.where(hit, lane, jnp.int32(2**30)), axis=1)
+def _chunk_rows(n: int, m: int) -> int:
+    """Power-of-two query chunk with chunk * m <= _PAIR_BUDGET (>= 1)."""
+    c = max(1, _PAIR_BUDGET // max(m, 1))
+    c = 1 << (c.bit_length() - 1)
+    return min(c, max(1, 1 << (n - 1).bit_length()))
 
 
-def _argmin_sublanes(mat, vals):
-    """Same for the SUBLANE axis (per-column argmin)."""
-    row = jax.lax.broadcasted_iota(jnp.int32, mat.shape, 0)
-    hit = mat <= vals[None, :]
-    return jnp.min(jnp.where(hit, row, jnp.int32(2**30)), axis=0)
+def _sq_dist(qc: jax.Array, rt: jax.Array) -> jax.Array:
+    """(C, 3) queries x (3, M) references -> (C, M) squared distances."""
+    d2 = (qc[:, 0:1] - rt[0]) ** 2
+    d2 = d2 + (qc[:, 1:2] - rt[1]) ** 2
+    return d2 + (qc[:, 2:3] - rt[2]) ** 2
 
 
-def _pad_coords(pts: jax.Array, tile: int, valid: jax.Array | None) -> jax.Array:
-    """(N, 3) -> (ceil(N/tile)*tile, 8) with invalid rows at the sentinel."""
-    n = pts.shape[0]
-    if valid is not None:
-        pts = jnp.where(valid[:, None], pts[:, :3], SENTINEL)
-    else:
-        pts = pts[:, :3]
-    n_pad = -n % tile
-    pts = jnp.pad(pts, ((0, n_pad), (0, _K - 3)), constant_values=0.0)
-    if n_pad:
-        pts = pts.at[n:, :3].set(SENTINEL)
-    return pts
+def _by_query_chunk(fn, q3: jax.Array, pairs_per_query: int, axis: int):
+    """``fn`` over query chunks of at most ``_PAIR_BUDGET`` pairs; each
+    output leaf is joined along its query ``axis`` and cut to N rows."""
+    n = q3.shape[0]
+    chunk = _chunk_rows(n, pairs_per_query)
+    if chunk >= n:
+        return fn(q3)
+    qp = jnp.pad(q3, ((0, -n % chunk), (0, 0)))
+    out = jax.lax.map(fn, qp.reshape(-1, chunk, 3))
+
+    def join(x):  # (chunks, ..., C, ...) -> (..., chunks * C, ...)
+        x = jnp.moveaxis(x, 0, axis)
+        x = x.reshape(x.shape[:axis] + (-1,) + x.shape[axis + 2:])
+        return jax.lax.slice_in_dim(x, 0, n, axis=axis)
+
+    return jax.tree.map(join, out)
 
 
-def _nn_kernel(q_ref, r_ref, o_ref):
-    # The output stays fully VMEM-resident (N * 4 bytes); row i holds the
-    # running min for query tile i while the j (reference-tile) loop streams.
-    i = pl.program_id(0)
-    j = pl.program_id(1)
-    q = q_ref[:]  # (QT, 8)
-    r = r_ref[:]  # (RT, 8)
-    # HIGHEST precision: the TPU MXU truncates fp32 operands to bf16 by
-    # default, and the |q|^2+|r|^2-2qr cancellation amplifies that rounding
-    # into meter-scale distance errors. K=8 keeps the exact dot cheap.
-    dot = jax.lax.dot_general(
-        q,
-        r,
-        dimension_numbers=(((1,), (1,)), ((), ())),
-        preferred_element_type=jnp.float32,
-        precision=jax.lax.Precision.HIGHEST,
-    )  # (QT, RT)
-    qn = jnp.sum(q * q, axis=1, keepdims=True)
-    rn = jnp.sum(r * r, axis=1)[None, :]
-    d2 = qn + rn - 2.0 * dot
-    tile_min = jnp.min(d2, axis=1)  # (QT,)
+def _min_argmin(d: jax.Array):
+    """(min, first argmin) over the last axis in one variadic reduction."""
+    iota = jax.lax.broadcasted_iota(jnp.int32, d.shape, d.ndim - 1)
 
-    @pl.when(j == 0)
-    def _():
-        o_ref[i, :] = tile_min
+    def pick(a, b):
+        (av, ai), (bv, bi) = a, b
+        take_b = (bv < av) | ((bv == av) & (bi < ai))
+        return jnp.where(take_b, bv, av), jnp.where(take_b, bi, ai)
 
-    @pl.when(j > 0)
-    def _():
-        o_ref[i, :] = jnp.minimum(o_ref[i, :], tile_min)
-
-
-@jax.jit
-def _nn_distance_sq_padded(q: jax.Array, r: jax.Array):
-    nq, nr = q.shape[0], r.shape[0]
-    grid = (nq // _QT, nr // _RT)
-    out = pl.pallas_call(
-        _nn_kernel,
-        out_shape=jax.ShapeDtypeStruct((grid[0], _QT), jnp.float32),
-        grid_spec=pl.GridSpec(
-            grid=grid,
-            in_specs=[
-                pl.BlockSpec((_QT, _K), lambda i, j: (i, 0), memory_space=pltpu.VMEM),
-                pl.BlockSpec((_RT, _K), lambda i, j: (j, 0), memory_space=pltpu.VMEM),
-            ],
-            out_specs=pl.BlockSpec(
-                (nq // _QT, _QT), lambda i, j: (0, 0), memory_space=pltpu.VMEM
-            ),
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * nq * nr * _K,
-            bytes_accessed=4 * (nq * _K + nr * _K + nq),
-            transcendentals=0,
-        ),
-    )(q, r)
-    return out.reshape(-1)
-
-
-@jax.jit
-def _nn_distance_sq_xla(q: jax.Array, r: jax.Array) -> jax.Array:
-    """Streaming-min in pure XLA: same tiling as the Pallas kernel, expressed
-    as a scan over reference tiles inside a map over query tiles. Used on
-    non-TPU backends and as the cross-check for the kernel."""
-    r_tiles = r.reshape(-1, _RT, _K)
-
-    def per_query_tile(q_tile):  # (QT, K)
-        qn = jnp.sum(q_tile * q_tile, axis=1, keepdims=True)
-
-        def fold(carry, r_tile):
-            dot = jax.lax.dot_general(
-                q_tile,
-                r_tile,
-                dimension_numbers=(((1,), (1,)), ((), ())),
-                preferred_element_type=jnp.float32,
-                precision=jax.lax.Precision.HIGHEST,
-            )
-            rn = jnp.sum(r_tile * r_tile, axis=1)[None, :]
-            tile_min = jnp.min(qn + rn - 2.0 * dot, axis=1)
-            return jnp.minimum(carry, tile_min), None
-
-        init = jnp.full((q_tile.shape[0],), jnp.inf, dtype=jnp.float32)
-        out, _ = jax.lax.scan(fold, init, r_tiles)
-        return out
-
-    q_tiles = q.reshape(-1, _QT, _K)
-    return jax.lax.map(per_query_tile, q_tiles).reshape(-1)
-
-
-def _on_tpu() -> bool:
-    return jax.default_backend() == "tpu"
-
-
-def _nn_idx_kernel(q_ref, r_ref, d_ref, i_ref):
-    """Streaming min + argmin: like _nn_kernel but also tracks the index of
-    the winning reference point (global index = tile offset + local)."""
-    i = pl.program_id(0)
-    j = pl.program_id(1)
-    q = q_ref[:]
-    r = r_ref[:]
-    dot = jax.lax.dot_general(
-        q,
-        r,
-        dimension_numbers=(((1,), (1,)), ((), ())),
-        preferred_element_type=jnp.float32,
-        precision=jax.lax.Precision.HIGHEST,
+    return jax.lax.reduce(
+        (d, iota),
+        (jnp.array(jnp.inf, d.dtype), jnp.array(jnp.iinfo(jnp.int32).max, jnp.int32)),
+        pick,
+        (d.ndim - 1,),
     )
-    qn = jnp.sum(q * q, axis=1, keepdims=True)
-    rn = jnp.sum(r * r, axis=1)[None, :]
-    d2 = qn + rn - 2.0 * dot
-    tile_min = jnp.min(d2, axis=1)
-    tile_arg = _argmin_lanes(d2, tile_min) + j * _RT
-
-    @pl.when(j == 0)
-    def _():
-        d_ref[i, :] = tile_min
-        i_ref[i, :] = tile_arg
-
-    @pl.when(j > 0)
-    def _():
-        better = tile_min < d_ref[i, :]
-        d_ref[i, :] = jnp.where(better, tile_min, d_ref[i, :])
-        i_ref[i, :] = jnp.where(better, tile_arg, i_ref[i, :])
 
 
-@jax.jit
-def _nn_argmin_padded(q: jax.Array, r: jax.Array):
-    nq, nr = q.shape[0], r.shape[0]
-    grid = (nq // _QT, nr // _RT)
-    d2, idx = pl.pallas_call(
-        _nn_idx_kernel,
-        out_shape=(
-            jax.ShapeDtypeStruct((grid[0], _QT), jnp.float32),
-            jax.ShapeDtypeStruct((grid[0], _QT), jnp.int32),
-        ),
-        grid_spec=pl.GridSpec(
-            grid=grid,
-            in_specs=[
-                pl.BlockSpec((_QT, _K), lambda i, j: (i, 0), memory_space=pltpu.VMEM),
-                pl.BlockSpec((_RT, _K), lambda i, j: (j, 0), memory_space=pltpu.VMEM),
-            ],
-            out_specs=(
-                pl.BlockSpec(
-                    (nq // _QT, _QT), lambda i, j: (0, 0), memory_space=pltpu.VMEM
-                ),
-                pl.BlockSpec(
-                    (nq // _QT, _QT), lambda i, j: (0, 0), memory_space=pltpu.VMEM
-                ),
-            ),
-        ),
-    )(q, r)
-    return d2.reshape(-1), idx.reshape(-1)
+def nn_search(q3: jax.Array, r3: jax.Array, penalties: jax.Array | None = None):
+    """Nearest reference per query, for each additive penalty row.
+
+    Args:
+        q3: (N, 3) float32 queries.
+        r3: (M, 3) float32 references.
+        penalties: optional (P, M) additive per-reference penalties; row p
+            gives the p-th search (0 = live, ``_MASK_BIG`` = masked).
+
+    Returns:
+        (P, N) float32 ``min_r |q - r|^2 + penalty[p, r]`` and (P, N) int32
+        first argmins (P = 1 without penalties).
+    """
+    rt = r3.astype(jnp.float32).T  # (3, M): each coordinate contiguous
+    pens = None if penalties is None else penalties.astype(jnp.float32)
+    p = 1 if pens is None else pens.shape[0]
+
+    def one(qc):  # (C, 3) -> (P, C), (P, C)
+        d2 = _sq_dist(qc, rt)[None]
+        return _min_argmin(d2 if pens is None else d2 + pens[:, None, :])
+
+    return _by_query_chunk(one, q3.astype(jnp.float32), rt.shape[1] * p, axis=1)
 
 
-@jax.jit
-def _nn_argmin_xla(q: jax.Array, r: jax.Array):
-    r_tiles = r.reshape(-1, _RT, _K)
-
-    def per_query_tile(q_tile):
-        qn = jnp.sum(q_tile * q_tile, axis=1, keepdims=True)
-
-        def fold(carry, inp):
-            best_d, best_i = carry
-            r_tile, offset = inp
-            dot = jax.lax.dot_general(
-                q_tile,
-                r_tile,
-                dimension_numbers=(((1,), (1,)), ((), ())),
-                preferred_element_type=jnp.float32,
-                precision=jax.lax.Precision.HIGHEST,
-            )
-            rn = jnp.sum(r_tile * r_tile, axis=1)[None, :]
-            d2 = qn + rn - 2.0 * dot
-            tile_min = jnp.min(d2, axis=1)
-            tile_arg = jnp.argmin(d2, axis=1).astype(jnp.int32) + offset
-            better = tile_min < best_d
-            return (
-                jnp.where(better, tile_min, best_d),
-                jnp.where(better, tile_arg, best_i),
-            ), None
-
-        init = (
-            jnp.full((q_tile.shape[0],), jnp.inf, jnp.float32),
-            jnp.zeros((q_tile.shape[0],), jnp.int32),
-        )
-        offsets = jnp.arange(r_tiles.shape[0], dtype=jnp.int32) * _RT
-        (d, idx), _ = jax.lax.scan(fold, init, (r_tiles, offsets))
-        return d, idx
-
-    q_tiles = q.reshape(-1, _QT, _K)
-    d, idx = jax.lax.map(per_query_tile, q_tiles)
-    return d.reshape(-1), idx.reshape(-1)
+def _masked(pts: jax.Array, valid: jax.Array | None) -> jax.Array:
+    pts = pts[:, :3]
+    return pts if valid is None else jnp.where(valid[:, None], pts, SENTINEL)
 
 
 def nn_argmin(
@@ -275,64 +116,34 @@ def nn_argmin(
     """(min squared distance, index of nearest reference point) per query.
 
     Invalid refs never win the min race; invalid queries return (0, 0)."""
-    n = query.shape[0]
-    q = _pad_coords(query, _QT, query_valid)
-    r = _pad_coords(ref, _RT, ref_valid)
-    if _on_tpu():
-        d2, idx = _nn_argmin_padded(q, r)
-    else:
-        d2, idx = _nn_argmin_xla(q, r)
-    d2 = jnp.maximum(d2[:n], 0.0)
-    idx = jnp.minimum(idx[:n], ref.shape[0] - 1)
+    d2, idx = nn_search(_masked(query, query_valid), _masked(ref, ref_valid))
+    d2, idx = d2[0], idx[0]
     if query_valid is not None:
         d2 = jnp.where(query_valid, d2, 0.0)
         idx = jnp.where(query_valid, idx, 0)
     return d2, idx
 
 
-def _nn_argmin_dispatch(q3: jax.Array, r3: jax.Array):
-    """(d2, idx) on padded-to-tile inputs of raw (N, 3)/(M, 3) coords."""
-    n = q3.shape[0]
-    q = _pad_coords(q3, _QT, None)
-    r = _pad_coords(r3, _RT, None)
-    if _on_tpu():
-        d2, idx = _nn_argmin_padded(q, r)
-    else:
-        d2, idx = _nn_argmin_xla(q, r)
-    return jnp.maximum(d2[:n], 0.0), jnp.minimum(idx[:n], r3.shape[0] - 1)
-
-
 @jax.custom_vjp
 def _nn_core(q3: jax.Array, r3: jax.Array) -> jax.Array:
     """Min squared distance per query, differentiable in both clouds.
 
-    The kernels aren't autodiffable; the gradient is analytic at the argmin:
-    d/dq |q - r*|^2 = 2 (q - r*), and refs accumulate the negatives via a
-    segment scatter — an O(N) backward instead of replaying the search.
-    The undifferentiated primal uses the cheaper min-only kernel; the VJP
-    forward pays for argmin tracking only when gradients are requested.
-    """
-    n = q3.shape[0]
-    q = _pad_coords(q3, _QT, None)
-    r = _pad_coords(r3, _RT, None)
-    if _on_tpu():
-        d2 = _nn_distance_sq_padded(q, r)[:n]
-    else:
-        d2 = _nn_distance_sq_xla(q, r)[:n]
-    return jnp.maximum(d2, 0.0)
+    The gradient is analytic at the argmin: d/dq |q - r*|^2 = 2 (q - r*),
+    and refs accumulate the negatives via a segment sum — an O(N) backward
+    instead of replaying the search."""
+    return nn_search(q3, r3)[0][0]
 
 
 def _nn_core_fwd(q3, r3):
-    d2, idx = _nn_argmin_dispatch(q3, r3)
-    return d2, (q3, r3, idx)
+    d2, idx = nn_search(q3, r3)
+    return d2[0], (q3, r3, idx[0])
 
 
 def _nn_core_bwd(residuals, g):
     q3, r3, idx = residuals
-    diff = q3 - r3[idx]
-    dq = 2.0 * g[:, None] * diff
-    dr = -segment_rows_sum(dq, idx, r3.shape[0])
-    return dq, dr
+    dq = 2.0 * g[:, None] * (q3 - r3[idx])
+    dr = -jax.ops.segment_sum(dq, idx, num_segments=r3.shape[0])
+    return dq.astype(q3.dtype), dr.astype(r3.dtype)
 
 
 _nn_core.defvjp(_nn_core_fwd, _nn_core_bwd)
@@ -359,16 +170,18 @@ def nn_distance_sq(
     Returns:
         (N,) float32 min squared distances (0 for invalid queries).
     """
-    q3 = query[:, :3]
-    r3 = ref[:, :3]
-    if query_valid is not None:
-        q3 = jnp.where(query_valid[:, None], q3, SENTINEL)
-    if ref_valid is not None:
-        r3 = jnp.where(ref_valid[:, None], r3, SENTINEL)
-    d2 = _nn_core(q3, r3)
+    d2 = _nn_core(_masked(query, query_valid), _masked(ref, ref_valid))
     if query_valid is not None:
         d2 = jnp.where(query_valid, d2, 0.0)
     return d2
+
+
+def _masked_mean(d, valid):
+    if valid is None:
+        return jnp.mean(d)
+    return jnp.sum(jnp.where(valid, d, 0.0)) / jnp.maximum(
+        jnp.sum(valid.astype(d.dtype)), 1.0
+    )
 
 
 def chamfer_distance(
@@ -381,15 +194,7 @@ def chamfer_distance(
     (mean of both directions' mean NN distance, NOT squared)."""
     d12 = jnp.sqrt(nn_distance_sq(pc1, pc2, valid1, valid2))
     d21 = jnp.sqrt(nn_distance_sq(pc2, pc1, valid2, valid1))
-
-    def masked_mean(d, valid):
-        if valid is None:
-            return jnp.mean(d)
-        return jnp.sum(jnp.where(valid, d, 0.0)) / jnp.maximum(
-            jnp.sum(valid.astype(d.dtype)), 1.0
-        )
-
-    return 0.5 * (masked_mean(d12, valid1) + masked_mean(d21, valid2))
+    return 0.5 * (_masked_mean(d12, valid1) + _masked_mean(d21, valid2))
 
 
 def truncated_chamfer(
@@ -405,285 +210,25 @@ def truncated_chamfer(
     cap = max_dist * max_dist
     d12 = jnp.minimum(nn_distance_sq(pc1, pc2, valid1, valid2), cap)
     d21 = jnp.minimum(nn_distance_sq(pc2, pc1, valid2, valid1), cap)
-
-    def masked_mean(d, valid):
-        if valid is None:
-            return jnp.mean(d)
-        return jnp.sum(jnp.where(valid, d, 0.0)) / jnp.maximum(
-            jnp.sum(valid.astype(d.dtype)), 1.0
-        )
-
-    return masked_mean(d12, valid1) + masked_mean(d21, valid2)
+    return _masked_mean(d12, valid1) + _masked_mean(d21, valid2)
 
 
 # ---------------------------------------------------------------------------
 # Fused SSL-chamfer mins: the seflowpp loss needs FOUR NN sweeps over the
 # same (warped pc0, pc1) pair — {all, dynamic-only} masks x {q->r, r->q}
-# directions — and each sweep recomputes the identical distance blocks. One
-# kernel computes each (QT, RT) block once and folds four masked running
-# mins: row mins (per query) stream with the outer grid dim, column mins
-# (per ref) live in a small fully-resident window. Masks are additive
-# penalties so the same coordinate tiles serve every variant.
-
-_MASK_BIG = 1.0e14  # additive penalty; SENTINEL^2 distances are ~1e12
+# directions. Each direction computes its distances once and folds both
+# masks as additive penalties.
 
 
-def _fused_nn_kernel(track_idx: bool):
-    def kernel(q_ref, r_ref, qa_ref, qd_ref, ra_ref, rd_ref, *outs):
-        i = pl.program_id(0)
-        j = pl.program_id(1)
-        q = q_ref[:]
-        r = r_ref[:]
-        dot = jax.lax.dot_general(
-            q,
-            r,
-            dimension_numbers=(((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.float32,
-            precision=jax.lax.Precision.HIGHEST,
-        )
-        qn = jnp.sum(q * q, axis=1, keepdims=True)
-        rn = jnp.sum(r * r, axis=1)[None, :]
-        d2 = qn + rn - 2.0 * dot  # (QT, RT)
-        # Mask tables stay fully VMEM-resident ((n//T, T) float32, a few
-        # hundred KB); row i / j is this tile's additive penalty vector.
-        ra = ra_ref[j, :][None, :]
-        rd = rd_ref[j, :][None, :]
-        qa = qa_ref[i, :][:, None]
-        qd = qd_ref[i, :][:, None]
-
-        def fold_row(o_ref, vals, first):
-            @pl.when(first)
-            def _():
-                o_ref[i, :] = vals
-
-            @pl.when(jnp.logical_not(first))
-            def _():
-                o_ref[i, :] = jnp.minimum(o_ref[i, :], vals)
-
-        def fold_col(o_ref, vals, first):
-            @pl.when(first)
-            def _():
-                o_ref[j, :] = vals
-
-            @pl.when(jnp.logical_not(first))
-            def _():
-                o_ref[j, :] = jnp.minimum(o_ref[j, :], vals)
-
-        if not track_idx:
-            oqa, oqd, ora, ord_ = outs
-            fold_row(oqa, jnp.min(d2 + ra, axis=1), j == 0)
-            fold_row(oqd, jnp.min(d2 + rd, axis=1), j == 0)
-            fold_col(ora, jnp.min(d2 + qa, axis=0), i == 0)
-            fold_col(ord_, jnp.min(d2 + qd, axis=0), i == 0)
-        else:
-            oqa, oqd, ora, ord_, iqa, iqd, ira, ird = outs
-
-            def fold_row_idx(o_ref, i_ref, mat, first):
-                vals = jnp.min(mat, axis=1)
-                args = _argmin_lanes(mat, vals) + j * _RT
-
-                @pl.when(first)
-                def _():
-                    o_ref[i, :] = vals
-                    i_ref[i, :] = args
-
-                @pl.when(jnp.logical_not(first))
-                def _():
-                    better = vals < o_ref[i, :]
-                    o_ref[i, :] = jnp.where(better, vals, o_ref[i, :])
-                    i_ref[i, :] = jnp.where(better, args, i_ref[i, :])
-
-            def fold_col_idx(o_ref, i_ref, mat, first):
-                vals = jnp.min(mat, axis=0)
-                args = _argmin_sublanes(mat, vals) + i * _QT
-
-                @pl.when(first)
-                def _():
-                    o_ref[j, :] = vals
-                    i_ref[j, :] = args
-
-                @pl.when(jnp.logical_not(first))
-                def _():
-                    better = vals < o_ref[j, :]
-                    o_ref[j, :] = jnp.where(better, vals, o_ref[j, :])
-                    i_ref[j, :] = jnp.where(better, args, i_ref[j, :])
-
-            fold_row_idx(oqa, iqa, d2 + ra, j == 0)
-            fold_row_idx(oqd, iqd, d2 + rd, j == 0)
-            fold_col_idx(ora, ira, d2 + qa, i == 0)
-            fold_col_idx(ord_, ird, d2 + qd, i == 0)
-
-    return kernel
-
-
-def _fused_pallas(q, r, qa, qd, ra, rd, track_idx: bool):
-    nq, nr = q.shape[0], r.shape[0]
-    gi, gj = nq // _QT, nr // _RT
-    qshape = jax.ShapeDtypeStruct((gi, _QT), jnp.float32)
-    rshape = jax.ShapeDtypeStruct((gj, _RT), jnp.float32)
-    out_shape = (qshape, qshape, rshape, rshape)
-    if track_idx:
-        out_shape = out_shape + (
-            jax.ShapeDtypeStruct((gi, _QT), jnp.int32),
-            jax.ShapeDtypeStruct((gi, _QT), jnp.int32),
-            jax.ShapeDtypeStruct((gj, _RT), jnp.int32),
-            jax.ShapeDtypeStruct((gj, _RT), jnp.int32),
-        )
-    qspec = pl.BlockSpec((gi, _QT), lambda i, j: (0, 0), memory_space=pltpu.VMEM)
-    rspec = pl.BlockSpec((gj, _RT), lambda i, j: (0, 0), memory_space=pltpu.VMEM)
-    out_specs = (qspec, qspec, rspec, rspec)
-    if track_idx:
-        out_specs = out_specs + (qspec, qspec, rspec, rspec)
-    outs = pl.pallas_call(
-        _fused_nn_kernel(track_idx),
-        out_shape=out_shape,
-        grid_spec=pl.GridSpec(
-            grid=(gi, gj),
-            in_specs=[
-                pl.BlockSpec((_QT, _K), lambda i, j: (i, 0), memory_space=pltpu.VMEM),
-                pl.BlockSpec((_RT, _K), lambda i, j: (j, 0), memory_space=pltpu.VMEM),
-                pl.BlockSpec((gi, _QT), lambda i, j: (0, 0), memory_space=pltpu.VMEM),
-                pl.BlockSpec((gi, _QT), lambda i, j: (0, 0), memory_space=pltpu.VMEM),
-                pl.BlockSpec((gj, _RT), lambda i, j: (0, 0), memory_space=pltpu.VMEM),
-                pl.BlockSpec((gj, _RT), lambda i, j: (0, 0), memory_space=pltpu.VMEM),
-            ],
-            out_specs=out_specs,
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * nq * nr * _K,
-            bytes_accessed=4 * (nq * _K + nr * _K + 2 * nq + 2 * nr),
-            transcendentals=0,
-        ),
-    )(
-        q,
-        r,
-        qa.reshape(gi, _QT),
-        qd.reshape(gi, _QT),
-        ra.reshape(gj, _RT),
-        rd.reshape(gj, _RT),
-    )
-    return tuple(o.reshape(-1) for o in outs)
-
-
-def _fused_xla(q, r, qa, qd, ra, rd):
-    """Streaming XLA fallback with argmins (CPU backends + kernel checks)."""
-    r_tiles = r.reshape(-1, _RT, _K)
-    ra_t = ra.reshape(-1, _RT)
-    rd_t = rd.reshape(-1, _RT)
-
-    def per_query_tile(inp):
-        q_tile, qa_tile, qd_tile = inp
-        qn = jnp.sum(q_tile * q_tile, axis=1, keepdims=True)
-
-        def fold(carry, tile):
-            r_tile, ra_row, rd_row, offset = tile
-            dot = jax.lax.dot_general(
-                q_tile,
-                r_tile,
-                dimension_numbers=(((1,), (1,)), ((), ())),
-                preferred_element_type=jnp.float32,
-                precision=jax.lax.Precision.HIGHEST,
-            )
-            rn = jnp.sum(r_tile * r_tile, axis=1)[None, :]
-            d2 = qn + rn - 2.0 * dot
-
-            def fold_min(best, mat, off):
-                bd, bi = best
-                vals = jnp.min(mat, axis=1)
-                args = jnp.argmin(mat, axis=1).astype(jnp.int32) + off
-                better = vals < bd
-                return jnp.where(better, vals, bd), jnp.where(better, args, bi)
-
-            qa_best, qd_best, ra_parts, rd_parts = carry
-            qa_best = fold_min(qa_best, d2 + ra_row[None, :], offset)
-            qd_best = fold_min(qd_best, d2 + rd_row[None, :], offset)
-            ra_parts = ra_parts + [
-                (jnp.min(d2 + qa_tile[:, None], axis=0),
-                 jnp.argmin(d2 + qa_tile[:, None], axis=0).astype(jnp.int32))
-            ]
-            rd_parts = rd_parts + [
-                (jnp.min(d2 + qd_tile[:, None], axis=0),
-                 jnp.argmin(d2 + qd_tile[:, None], axis=0).astype(jnp.int32))
-            ]
-            return (qa_best, qd_best, ra_parts, rd_parts), None
-
-        init_best = (
-            jnp.full((q_tile.shape[0],), jnp.inf, jnp.float32),
-            jnp.zeros((q_tile.shape[0],), jnp.int32),
-        )
-        carry = (init_best, init_best, [], [])
-        offsets = jnp.arange(r_tiles.shape[0], dtype=jnp.int32) * _RT
-        for k in range(r_tiles.shape[0]):
-            carry, _ = fold(carry, (r_tiles[k], ra_t[k], rd_t[k], offsets[k]))
-        qa_best, qd_best, ra_parts, rd_parts = carry
-        ra_d = jnp.concatenate([p[0] for p in ra_parts])
-        ra_i = jnp.concatenate([p[1] for p in ra_parts])
-        rd_d = jnp.concatenate([p[0] for p in rd_parts])
-        rd_i = jnp.concatenate([p[1] for p in rd_parts])
-        return qa_best, qd_best, (ra_d, ra_i), (rd_d, rd_i)
-
-    gi = q.shape[0] // _QT
-    qa_ds, qa_is, qd_ds, qd_is = [], [], [], []
-    ra_d = jnp.full((r.shape[0],), jnp.inf, jnp.float32)
-    ra_i = jnp.zeros((r.shape[0],), jnp.int32)
-    rd_d = jnp.full((r.shape[0],), jnp.inf, jnp.float32)
-    rd_i = jnp.zeros((r.shape[0],), jnp.int32)
-    for i in range(gi):
-        sl = slice(i * _QT, (i + 1) * _QT)
-        (qa_b, qd_b, (rad, rai), (rdd, rdi)) = per_query_tile(
-            (q[sl], qa[sl], qd[sl])
-        )
-        qa_ds.append(qa_b[0]); qa_is.append(qa_b[1])
-        qd_ds.append(qd_b[0]); qd_is.append(qd_b[1])
-        better = rad < ra_d
-        ra_d = jnp.where(better, rad, ra_d)
-        ra_i = jnp.where(better, rai + i * _QT, ra_i)
-        better = rdd < rd_d
-        rd_d = jnp.where(better, rdd, rd_d)
-        rd_i = jnp.where(better, rdi + i * _QT, rd_i)
-    return (
-        jnp.concatenate(qa_ds), jnp.concatenate(qd_ds),
-        ra_d, rd_d,
-        jnp.concatenate(qa_is), jnp.concatenate(qd_is),
-        ra_i, rd_i,
-    )
-
-
-def _pad_mask(mask_penalty, tile):
-    n = mask_penalty.shape[0]
-    pad = -n % tile
-    if pad:
-        mask_penalty = jnp.pad(mask_penalty, (0, pad), constant_values=_MASK_BIG)
-    return mask_penalty
-
-
-def _fused_dispatch(q3, r3, qa, qd, ra, rd, track_idx):
-    nq, nr = q3.shape[0], r3.shape[0]
-    q = _pad_coords(q3, _QT, None)
-    r = _pad_coords(r3, _RT, None)
-    qa, qd = _pad_mask(qa, _QT), _pad_mask(qd, _QT)
-    ra, rd = _pad_mask(ra, _RT), _pad_mask(rd, _RT)
-    if _on_tpu():
-        outs = _fused_pallas(q, r, qa, qd, ra, rd, track_idx)
-    else:
-        outs = _fused_xla(q, r, qa, qd, ra, rd)
-        if not track_idx:
-            outs = outs[:4]
-    dists = tuple(
-        jnp.maximum(o[:n], 0.0) for o, n in zip(outs[:4], (nq, nq, nr, nr))
-    )
-    if not track_idx:
-        return dists
-    idxs = tuple(
-        jnp.minimum(o[:n], lim - 1)
-        for o, n, lim in zip(outs[4:], (nq, nq, nr, nr), (nr, nr, nq, nq))
-    )
-    return dists + idxs
+def _fused_search(q3, r3, qa, qd, ra, rd):
+    (dqa, dqd), (iqa, iqd) = nn_search(q3, r3, jnp.stack([ra, rd]))
+    (dra, drd), (ira, ird) = nn_search(r3, q3, jnp.stack([qa, qd]))
+    return (dqa, dqd, dra, drd), (iqa, iqd, ira, ird)
 
 
 @jax.custom_vjp
 def fused_masked_nn(q3, r3, qa, qd, ra, rd):
-    """Four masked NN sweeps over one distance computation.
+    """Four masked NN sweeps, two distance computations.
 
     Args:
         q3 / r3: (N, 3) / (M, 3) clouds.
@@ -696,39 +241,16 @@ def fused_masked_nn(q3, r3, qa, qd, ra, rd):
         own side is masked are garbage — exclude them in the reduction.
         Differentiable in q3/r3 (analytic VJP at the argmin).
     """
-    return _fused_dispatch(q3, r3, qa, qd, ra, rd, track_idx=False)
+    return _fused_search(q3, r3, qa, qd, ra, rd)[0]
 
 
 def _fused_fwd(q3, r3, qa, qd, ra, rd):
-    outs = _fused_dispatch(q3, r3, qa, qd, ra, rd, track_idx=True)
-    dists, idxs = outs[:4], outs[4:]
-    return dists, (q3, r3) + idxs
-
-
-def segment_rows_sum(vals, idx, num_segments: int):
-    """Sum (N, C) rows into segments: the Pallas resident sum-scatter on
-    TPU (~7 ns/row vs XLA's ~70 ns unsorted scatter), XLA segment_sum
-    elsewhere. Non-differentiable (used inside custom backward passes)."""
-    from himo_tpu.ops.voxelize import (
-        _interpret,
-        _pad_for_scatter,
-        _pallas_fits,
-        _scatter_engine,
-        _scatter_rows_fn,
-        _seggather_forward,
-    )
-
-    if _scatter_engine() == "gather":
-        return _seggather_forward(idx, vals, num_segments, "sum")
-    if (_on_tpu() or _interpret()) and _pallas_fits(num_segments, vals.shape[1]):
-        pids, vals = _pad_for_scatter(idx, vals, num_segments)
-        out = _scatter_rows_fn(num_segments, "sum", _interpret())(pids, vals)
-        return out[:num_segments]
-    return jax.ops.segment_sum(vals, idx, num_segments=num_segments)
+    dists, idxs = _fused_search(q3, r3, qa, qd, ra, rd)
+    return dists, (q3, r3, qa, ra) + idxs
 
 
 def _fused_bwd(residuals, g):
-    q3, r3, iqa, iqd, ira, ird = residuals
+    q3, r3, qa, ra, iqa, iqd, ira, ird = residuals
     g_qa, g_qd, g_ra, g_rd = g
     nq, nr = q3.shape[0], r3.shape[0]
 
@@ -739,47 +261,21 @@ def _fused_bwd(residuals, g):
     dq_d = diffs(g_qd, q3, r3, iqd)
     dr_a = diffs(g_ra, r3, q3, ira)
     dr_d = diffs(g_rd, r3, q3, ird)
-    # One fused scatter per destination (instead of four segment_sums):
-    # concatenated sources, shared segment table.
-    dr_scatter = segment_rows_sum(
-        jnp.concatenate([dq_a, dq_d]), jnp.concatenate([iqa, iqd]), nr
+    # One scatter per destination: concatenated sources, shared segments.
+    dr_scatter = jax.ops.segment_sum(
+        jnp.concatenate([dq_a, dq_d]), jnp.concatenate([iqa, iqd]), num_segments=nr
     )
-    dq_scatter = segment_rows_sum(
-        jnp.concatenate([dr_a, dr_d]), jnp.concatenate([ira, ird]), nq
+    dq_scatter = jax.ops.segment_sum(
+        jnp.concatenate([dr_a, dr_d]), jnp.concatenate([ira, ird]), num_segments=nq
     )
     dq = dq_a + dq_d - dq_scatter
     dr = dr_a + dr_d - dr_scatter
-    zq = jnp.zeros((nq,), jnp.float32)
-    zr = jnp.zeros((nr,), jnp.float32)
-    return dq, dr, zq, zq, zr, zr
+    # Cotangents carry the primal dtypes (penalties are float64 under x64).
+    zq, zr = jnp.zeros_like(qa), jnp.zeros_like(ra)
+    return dq.astype(q3.dtype), dr.astype(r3.dtype), zq, zq, zr, zr
 
 
 fused_masked_nn.defvjp(_fused_fwd, _fused_bwd)
-
-
-@jax.custom_vjp
-def take_rows(x, idx):
-    """Differentiable row take whose transpose runs through the Pallas
-    resident sum-scatter instead of XLA's unsorted scatter (~10x on TPU).
-    Use for loss-side subsampling of flow-dependent arrays."""
-    return jnp.take(x, idx, axis=0)
-
-
-def _take_rows_fwd(x, idx):
-    return jnp.take(x, idx, axis=0), (idx, x.shape[0])
-
-
-def _take_rows_bwd(residuals, g):
-    idx, n = residuals
-    import numpy as onp
-
-    return (
-        segment_rows_sum(g, idx, n),
-        onp.zeros(onp.shape(idx), dtype=jax.dtypes.float0),
-    )
-
-
-take_rows.defvjp(_take_rows_fwd, _take_rows_bwd)
 
 
 def fused_chamfer_terms(
@@ -793,8 +289,7 @@ def fused_chamfer_terms(
     dynamic_max_dist: float | None = None,
 ):
     """(truncated chamfer over all valid points, truncated chamfer over the
-    SSL-dynamic subsets) — both terms from ONE fused NN pass (the seflowpp
-    loss previously paid 4 identical distance sweeps).
+    SSL-dynamic subsets) — both terms from one fused NN pass per direction.
 
     ``dynamic_max_dist`` optionally widens the dynamic term's truncation
     radius (default: same as ``max_dist``). Objects at 25-34 m/s move
@@ -812,18 +307,12 @@ def fused_chamfer_terms(
     cap = max_dist * max_dist
     dyn_dist = max_dist if dynamic_max_dist is None else dynamic_max_dist
     dyn_cap = dyn_dist * dyn_dist
-
-    def masked_mean(d, valid):
-        return jnp.sum(jnp.where(valid, d, 0.0)) / jnp.maximum(
-            jnp.sum(valid.astype(d.dtype)), 1.0
-        )
-
-    chamfer = masked_mean(jnp.minimum(dq_all, cap), valid0) + masked_mean(
+    chamfer = _masked_mean(jnp.minimum(dq_all, cap), valid0) + _masked_mean(
         jnp.minimum(dr_all, cap), valid1
     )
-    dyn = masked_mean(
+    dyn = _masked_mean(
         jnp.minimum(dq_dyn, dyn_cap), valid0 & dynamic0
-    ) + masked_mean(jnp.minimum(dr_dyn, dyn_cap), valid1 & dynamic1)
+    ) + _masked_mean(jnp.minimum(dr_dyn, dyn_cap), valid1 & dynamic1)
     return chamfer, dyn
 
 

@@ -1,4 +1,4 @@
-"""Point-in-rotated-box assignment — TPU replacement for the one CUDA op the
+"""Point-in-rotated-box assignment — JAX replacement for the one CUDA op the
 reference imports (mmcv.ops.points_in_boxes_part, dataprocess/
 extract_sca.py:20,116-118).
 

@@ -18,12 +18,12 @@ convs cannot hit the 5% strict-accuracy bar at 2.5-3.4 m/frame. Geometry
 can: matching against the second sweep IS the measurement, and the network
 only has to propose the object mask and a coarse seed.
 
-TPU design:
+Design:
 - Fixed-size subsets via stable argsort selection (static shapes under
   jit; invalid rows masked, never branched on).
-- The streaming NN kernel (``ops/nn.py``) on (K0 x K1) tiles — a few
-  8k x 8k passes per frame, ~1 ms each on v5e.
-- Per-slot reductions as one-hot matmuls on the MXU at HIGHEST precision
+- The NN search (``ops/nn.py``) on (K0 x K1) subsets — a few 4k x 8k
+  passes per frame.
+- Per-slot reductions as one-hot matmuls at HIGHEST precision
   (bf16 truncation must not bias an object's translation); no unsorted
   scatters anywhere.
 - The whole refiner is wrapped in ``stop_gradient``: it is measurement,
@@ -90,7 +90,7 @@ def dilated_dynamic_mask(
 ) -> jax.Array:
     """Per-pc1-point mask: within ``reach_cells`` pillars of dynamic
     evidence. Dilation runs on a ``pool``-strided coarse grid (separable
-    windowed max — VPU only), sized so a displaced object's pc1 footprint
+    windowed max), sized so a displaced object's pc1 footprint
     still falls inside its pc0-frame dynamic blob's neighborhood."""
     h, w = dyn_logit.shape
     occ = (dyn_logit > 0.0).astype(jnp.float32)
@@ -115,7 +115,7 @@ def _slot_mean(
     values: jax.Array,  # (K, C)
     weights: jax.Array,  # (K,)
 ) -> Tuple[jax.Array, jax.Array]:
-    """Weighted per-slot mean via one MXU matmul: ((S, C) means, (S,) mass)."""
+    """Weighted per-slot mean via one matmul: ((S, C) means, (S,) mass)."""
     aug = jnp.concatenate(
         [values * weights[:, None], weights[:, None]], axis=1
     )
@@ -159,7 +159,7 @@ def refine_slot_translations(
     and ``ddt = rdt[nn] - qdt`` — one scalar regressor with no intercept
     ambiguity — so the update is the per-slot weighted least squares
     ``e = sum(resid * z) / sum(z^2)``, ``z = 1 + ddt/period``: five extra
-    columns in the same one-hot MXU matmul as a plain mean. Without dts,
+    columns in the same one-hot matmul as a plain mean. Without dts,
     z = 1 everywhere and the update degrades to the trimmed mean.
 
     Returns ``(delta (S, 3), conf (S,), snapped (S,))``: ``conf`` marks

@@ -1,17 +1,18 @@
-"""Device mesh & sharding helpers for v5e slices.
+"""Device mesh & sharding helpers.
 
 The reference's only multi-device axis is 4-GPU DDP training
-(assets/slurm/ssl-train-av2.sh:3; SURVEY.md §2.11). The TPU-native design
-generalizes that to a named mesh:
+(assets/slurm/ssl-train-av2.sh:3; SURVEY.md §2.11). Here that is a named
+mesh:
 
 - ``data`` — scenes/frames batch axis (training DP and fleet inference);
-  gradients all-reduce over ICI via jit-inserted psums.
+  gradients all-reduce via jit-inserted psums (NCCL between GPUs).
 - ``model`` — reserved axis for spatially sharding the pillar pseudo-image
-  (beyond-HBM grids); size 1 until needed.
+  (beyond-memory grids); size 1 until needed.
 
-Everything routes through ``jax.sharding.NamedSharding`` so the same code
-runs single-chip (trivial mesh), on a v5e-8 slice, and on the 8-device
-virtual CPU mesh used in CI.
+The GPUs of one host reach each other all to all over NVLink, so the mesh
+follows the algorithm alone: a flat list of devices. Everything routes
+through ``jax.sharding.NamedSharding`` so the same code runs on one GPU
+(trivial mesh), on several, and on the virtual CPU mesh of the tests.
 """
 
 from __future__ import annotations

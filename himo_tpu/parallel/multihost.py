@@ -1,8 +1,8 @@
 """Multi-host (pod / DCN) initialization & helpers.
 
-Single-slice usage needs nothing from here — `make_mesh()` over local
-devices rides ICI. For multi-host fleets (v5e pods, several processes each
-owning a subset of chips):
+Single-host usage needs nothing from here — `make_mesh()` over the local
+GPUs. For multi-host fleets (several processes, each owning a subset of
+the devices):
 
     from himo_tpu.parallel import multihost
     multihost.initialize()               # jax.distributed under the hood
@@ -11,9 +11,9 @@ owning a subset of chips):
 Data loading stays per-host: each process feeds its local shard of the
 batch via :func:`host_local_batch_slice`, and
 ``jax.make_array_from_process_local_data`` assembles the global array.
-Gradient all-reduces ride ICI within a slice and DCN across slices — XLA
-places them from the sharding, no custom comm code (SURVEY.md §2.11 /
-scaling-book recipe).
+Gradient all-reduces run over NVLink within a host and the network across
+hosts — XLA places them from the sharding, no custom comm code (SURVEY.md
+§2.11 / scaling-book recipe).
 """
 
 from __future__ import annotations
@@ -32,8 +32,8 @@ def initialize(
     process_id: Optional[int] = None,
 ) -> None:
     """Initialize jax.distributed; no-op when already initialized or
-    single-process (TPU pods auto-discover via the runtime when args are
-    omitted).
+    single-process. On GPUs the coordinator address, process count and
+    process id must be given.
 
     MUST run before anything touches the XLA backend — including
     ``jax.process_count()``/``jax.devices()`` — so the already-initialized

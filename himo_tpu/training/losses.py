@@ -3,7 +3,7 @@
 The reference trains SeFlow++ with ``loss_fn=seflowppLoss`` and weights
 ``{chamfer_dis: 1.0, static_flow_loss: 1.0, dynamic_chamfer_dis: 1.0,
 cluster_based_pc0pc1: 1.0}`` (assets/slurm/ssl-train-av2.sh:33). The four
-terms, re-derived TPU-first (all static shapes, NN via the streaming kernel):
+terms, re-derived for jit (all static shapes, NN via ``ops/nn.py``):
 
 - ``chamfer_dis``     — truncated Chamfer between warped pc0 and pc1 over all
   non-ground points: the base alignment signal.
@@ -234,14 +234,11 @@ def seflowpp_loss_sampled(
 ) -> Dict[str, jax.Array]:
     """seflowpp_loss with SAMPLED Chamfer terms.
 
-    The NN searches are quadratic in cloud size and dominate the train step
-    (measured: a 65k-point step spends most of its 4 s in the loss NN, not
-    the backbone). Gathering K-point subsets for the chamfer terms cuts that
+    The NN searches are quadratic in cloud size: full 65k-point clouds would
+    make the loss NN the largest cost of the step. Gathering K-point subsets for the chamfer terms cuts that
     by (N/K)^2 while the cheap elementwise/segment terms (static flow,
     cluster rigidity, translation prior) stay exact over the full cloud.
     """
-    from himo_tpu.ops.nn import take_rows
-
     warped = pc0[:, :3] + flow
     # Strong labels beat weak ones — see seflowpp_loss: covered points are
     # chamfer geometry, not chamfer gradient.
@@ -250,9 +247,7 @@ def seflowpp_loss_sampled(
         warped_ch = jnp.where(
             prior_valid0[:, None], jax.lax.stop_gradient(warped), warped
         )
-    # take_rows: the sample-take's transpose is a scatter-add back into the
-    # full cloud — routed through the Pallas resident kernel on TPU.
-    w_l, v0_l = take_rows(warped_ch, loss_idx0), valid0[loss_idx0]
+    w_l, v0_l = warped_ch[loss_idx0], valid0[loss_idx0]
     d0_l = dynamic0[loss_idx0]
     p1_l, v1_l = pc1[loss_idx1, :3], valid1[loss_idx1]
     d1_l = dynamic1[loss_idx1]

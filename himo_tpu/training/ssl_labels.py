@@ -2,7 +2,7 @@
 
 Fills the role of the reference's ``+ssl_label=seflowpp_auto`` auxiliary
 labels (assets/slurm/ssl-train-av2.sh:33; the SeFlow recipe uses DUFOMap
-occupancy change + HDBSCAN in the absent submodule). TPU-era replacement:
+occupancy change + HDBSCAN in the absent submodule). Replacement:
 
 - dynamic evidence, NN residual (``method=nn``): after ego-compensation a
   static point finds a near neighbor in the next sweep; points whose NN

@@ -2,14 +2,14 @@
 
 Implements the reference's SeFlow++ recipe (assets/slurm/ssl-train-av2.sh:31-34:
 ``model=deflowpp loss_fn=seflowppLoss batch_size=8 epochs=12 lr=6e-5`` with
-StepLR(3, 0.5) and 4-GPU DDP) the TPU way:
+StepLR(3, 0.5) and 4-GPU DDP) as one SPMD program:
 
 - one jitted ``train_step`` whose batch inputs carry a ``NamedSharding`` over
   the mesh's ``data`` axis while params stay replicated — XLA inserts the
-  gradient all-reduce over ICI (no NCCL, no DDP wrapper);
+  gradient all-reduce (NCCL on GPUs; no DDP wrapper);
 - frames padded to a fixed point budget, so one program serves every batch;
 - host-side batch building threads ahead of the device (double-buffered);
-- orbax checkpoints with top-k retention + StepLR via optax schedule.
+- .npz checkpoints with top-k retention + StepLR via optax schedule.
 """
 
 from __future__ import annotations

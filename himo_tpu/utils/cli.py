@@ -51,6 +51,15 @@ def parse_overrides(argv: Sequence[str]) -> Dict[str, Any]:
     return kwargs
 
 
+def pin_worker_to_cpu() -> None:
+    """Pool initializer for host-preprocessing workers: their JAX ops run on
+    the CPU, so N workers do not each open the GPU (each would reserve most
+    of its memory)."""
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+
+
 def run_cli(fn: Callable, argv: Optional[Sequence[str]] = None) -> Any:
     """Dispatch ``fn`` from CLI args; '-h'/'--help' prints the signature."""
     argv = list(sys.argv[1:] if argv is None else argv)
@@ -60,6 +69,9 @@ def run_cli(fn: Callable, argv: Optional[Sequence[str]] = None) -> Any:
         print(f"usage: {fn.__module__}.{fn.__name__}{sig}\n\n{doc}")
         return None
     kwargs = parse_overrides(argv)
+    from himo_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     start = time.time()
     try:
         return fn(**kwargs)

@@ -3,7 +3,7 @@
 
 - :class:`Timer` — named accumulating wall-clock timers with a summary table.
 - :func:`stage_timer` — context manager for one stage.
-- :func:`trace` — wraps ``jax.profiler.trace`` for TensorBoard-viewable TPU
+- :func:`trace` — wraps ``jax.profiler.trace`` for TensorBoard-viewable device
   traces, no-op when profiling is disabled.
 """
 

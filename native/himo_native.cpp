@@ -1,6 +1,6 @@
 // himo_native — host-side runtime primitives for the himo_tpu framework.
 //
-// The TPU owns the per-point compute path; this library owns the host hot
+// The GPU owns the per-point compute path; this library owns the host hot
 // loops around it (the roles the reference delegates to scipy cKDTree /
 // mmcv CUDA / Python file IO):
 //   * a bucketed 3-D KD-tree with multi-threaded nearest-neighbor queries

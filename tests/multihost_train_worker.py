@@ -6,7 +6,7 @@ The DDP role of the reference's 4-GPU recipe
 pod: both processes join a TCP coordinator, build the global (data, model)
 mesh, run ONE jitted sharded SSL train step on their local batch shards
 (gradient all-reduce crosses the Gloo backend), verify the updated params are
-bit-identical across hosts, then collectively orbax-save and restore the
+bit-identical across hosts, then save (process 0 writes) and restore the
 train state."""
 import os
 import sys

@@ -3,7 +3,7 @@
 Simulates a 2-host pod on CPU: each process owns 4 virtual devices, joins a
 TCP coordinator, builds the global (data, model) mesh, loads its local
 batch slice, and reduces across hosts via a jitted global sum — the DCN
-role of SURVEY.md §2.11 without TPU pod hardware."""
+role of SURVEY.md §2.11 without a multi-host cluster."""
 import os
 import sys
 

@@ -1,4 +1,4 @@
-"""k-NN streaming kernel: XLA fallback vs brute force + loss consumer."""
+"""k-NN distances vs brute force + loss consumer."""
 
 import numpy as np
 import jax
@@ -39,15 +39,6 @@ class TestKNNDistances:
 
 class TestSmoothedChamfer:
     def test_value_and_gradient(self, rng):
-        import os
-
-        import pytest as _pytest
-
-        if os.environ.get("HIMO_PALLAS_INTERPRET") == "1":
-            # jax's pallas interpreter cannot trace a pallas_call under the
-            # grad transform alongside the NN custom-VJP kernels; the kernel
-            # itself is covered by the distance tests above.
-            _pytest.skip("interpret mode: grad-through-pallas unsupported")
         a = rng.normal(size=(128, 3)).astype(np.float32)
         b = rng.normal(size=(512, 3)).astype(np.float32)
         va = np.ones(128, bool)

@@ -33,7 +33,7 @@ def test_two_process_global_mesh_and_reduction():
 def test_two_process_sharded_train_step_and_checkpoint(tmp_path):
     """Full DDP train-through: one sharded SSL train step in both processes
     (gradient all-reduce over the Gloo backend), params bit-identical across
-    hosts afterwards, then a COLLECTIVE orbax save + restore — the 4-GPU DDP
+    hosts afterwards, then a checkpoint save + restore — the 4-GPU DDP
     role of /root/reference/assets/slurm/ssl-train-av2.sh:3,31."""
     s = socket.socket()
     s.bind(("127.0.0.1", 0))

@@ -1,4 +1,4 @@
-"""Device ops: streaming NN kernel, pillar voxelization, points-in-boxes."""
+"""Device ops: NN search, pillar voxelization, points-in-boxes."""
 
 import numpy as np
 import pytest
@@ -27,14 +27,12 @@ class TestNN:
         r = rng.normal(scale=10, size=(700, 3)).astype(np.float32)
         got = np.asarray(nn_distance_sq(q, r))
         want = np.asarray(nn_distance_sq_reference(q, r))
-        # dot-form |q|^2+|r|^2-2qr cancels catastrophically in fp32: abs error
-        # ~ eps * |q|^2 ~ 1e-4 at scale 10 — tolerance reflects that.
         np.testing.assert_allclose(got, want, rtol=1e-3, atol=2e-3)
 
     def test_exact_zero_for_identical_clouds(self, rng):
         pts = rng.normal(scale=5, size=(256, 3)).astype(np.float32)
         d2 = np.asarray(nn_distance_sq(pts, pts))
-        assert d2.max() < 1e-3  # dot-form |q-r|^2 cancels to ~0
+        assert d2.max() < 1e-3
 
     def test_respects_ref_valid_mask(self, rng):
         q = np.zeros((4, 3), dtype=np.float32)
@@ -217,140 +215,6 @@ class TestNNGradients:
         np.testing.assert_allclose(np.asarray(gr)[15:], 0.0)
 
 
-class TestPallasKernels:
-    """Interpret-mode coverage of the TPU Pallas scatter/gather kernels —
-    the CPU suite otherwise only exercises the XLA fallback paths.
-
-    Budgets are monkeypatched small so the banded (sorted) kernels trigger
-    on test-sized grids; unique row counts avoid lru-cache collisions with
-    the real budgets."""
-
-    @pytest.fixture(autouse=True)
-    def _interp(self, monkeypatch):
-        from himo_tpu.ops import voxelize as V
-
-        monkeypatch.setenv("HIMO_PALLAS_INTERPRET", "1")
-        monkeypatch.setattr(V, "_VMEM_BUDGET_BYTES", 96 * 1024)
-        monkeypatch.setattr(V, "_BAND_BUDGET_BYTES", 32 * 1024)
-
-    def _ref_scatter(self, pids, feats, num_rows, combine):
-        import jax
-
-        if combine == "max":
-            out = jax.ops.segment_max(feats, pids, num_segments=num_rows)
-            return np.where(np.isfinite(np.asarray(out)), np.asarray(out), 0.0)
-        return np.asarray(
-            jax.ops.segment_sum(feats, pids, num_segments=num_rows)
-        )
-
-    @pytest.mark.parametrize("variant", ["table", "streamed"])
-    @pytest.mark.parametrize("combine", ["max", "sum"])
-    @pytest.mark.parametrize("num_rows", [1000, 7003])  # resident | banded
-    def test_scatter_matches_segment_ops(
-        self, rng, combine, num_rows, variant, monkeypatch
-    ):
-        from himo_tpu.ops import voxelize as V
-
-        if variant == "streamed":
-            # Force the argsort+take streamed kernel (real gate: wide feats
-            # tables, e.g. C=64 gather gradients).
-            monkeypatch.setattr(V, "_TABLE_BUDGET_BYTES", 0)
-        n, c = 900, 5
-        pids = jnp.asarray(rng.integers(0, num_rows + 1, size=(n,)), jnp.int32)
-        feats = jnp.asarray(rng.normal(size=(n, c)), jnp.float32)
-        out = np.asarray(
-            V._scatter_rows_pallas(pids, feats, num_rows=num_rows, combine=combine)
-        )[:num_rows]
-        ref = self._ref_scatter(pids, feats, num_rows, combine)
-        if combine == "max":
-            out = np.where(out <= V._NEG / 2, 0.0, out)
-        np.testing.assert_allclose(out, ref, atol=1e-5)
-
-    @pytest.mark.parametrize("num_rows", [1001, 7005])  # resident | banded
-    def test_gather_matches_take(self, rng, num_rows):
-        from himo_tpu.ops import voxelize as V
-
-        n, c = 700, 6
-        image = jnp.asarray(rng.normal(size=(num_rows, c)), jnp.float32)
-        pids = jnp.asarray(rng.integers(0, num_rows, size=(n,)), jnp.int32)
-        got = np.asarray(
-            V._sorted_gather_forward(
-                pids, image, num_rows=num_rows, interpret=True
-            )
-        )
-        np.testing.assert_allclose(got, np.asarray(image)[np.asarray(pids)], atol=1e-6)
-
-    @pytest.mark.parametrize("num_rows", [1002, 7007])  # resident | banded
-    def test_scatter_gradients_match_xla(self, rng, num_rows):
-        import jax
-
-        from himo_tpu.ops import voxelize as V
-
-        n, c = 600, 4
-        pids = jnp.asarray(rng.integers(0, num_rows + 1, size=(n,)), jnp.int32)
-        feats = jnp.asarray(rng.normal(size=(n, c)), jnp.float32)
-        w = jnp.asarray(rng.normal(size=(num_rows, c)), jnp.float32)
-
-        def loss_pallas(f):
-            out = V._scatter_rows_pallas(pids, f, num_rows=num_rows, combine="sum")
-            return jnp.sum(out[:num_rows] * w)
-
-        def loss_xla(f):
-            out = jax.ops.segment_sum(f, pids, num_segments=num_rows + 8)
-            return jnp.sum(out[:num_rows] * w)
-
-        g1 = np.asarray(jax.grad(loss_pallas)(feats))
-        g2 = np.asarray(jax.grad(loss_xla)(feats))
-        np.testing.assert_allclose(g1, g2, atol=1e-5)
-
-    def test_gather_gradient_uses_banded_scatter(self, rng):
-        import jax
-
-        from himo_tpu.ops import voxelize as V
-
-        num_rows, n, c = 7009, 500, 4  # beyond the patched VMEM budget
-        image = jnp.asarray(rng.normal(size=(num_rows, c)), jnp.float32)
-        pids = jnp.asarray(rng.integers(0, num_rows, size=(n,)), jnp.int32)
-
-        def loss_pallas(img):
-            return jnp.sum(V._diff_gather_sorted_fn(num_rows, True)(pids, img) ** 2)
-
-        def loss_xla(img):
-            return jnp.sum(img[pids] ** 2)
-
-        g1 = np.asarray(jax.grad(loss_pallas)(image))
-        g2 = np.asarray(jax.grad(loss_xla)(image))
-        np.testing.assert_allclose(g1, g2, atol=1e-5)
-
-    def test_public_api_batched_banded_matches_xla(self, rng):
-        """vmap'd scatter_max + gather_pillars on a banded-size grid equal
-        the XLA fallback bit-for-bit-ish."""
-        import jax
-
-        from himo_tpu.ops import voxelize as V
-
-        cfg = PillarConfig(
-            x_range=(-16.0, 16.0), y_range=(-16.0, 16.0), voxel_size=(0.25, 0.25)
-        )  # 128x128 = 16384 rows > patched budget
-        B, n = 2, 768
-        pts = rng.uniform(-17, 17, size=(B, n, 3)).astype(np.float32)
-        pts[..., 2] *= 0.1
-        valid = rng.random((B, n)) < 0.9
-        feats = rng.normal(size=(B, n, 3)).astype(np.float32)
-
-        def one(p, v, f):
-            grid = voxelize_pillars(jnp.asarray(p), jnp.asarray(v), cfg)
-            img = scatter_max(jnp.asarray(f), grid)
-            return img, gather_pillars(img, grid)
-
-        imgs, backs = jax.vmap(one)(pts, valid, feats)
-        with pytest.MonkeyPatch.context() as mp:
-            mp.setenv("HIMO_PALLAS_INTERPRET", "0")
-            imgs2, backs2 = jax.vmap(one)(pts, valid, feats)
-        np.testing.assert_allclose(np.asarray(imgs), np.asarray(imgs2), atol=1e-5)
-        np.testing.assert_allclose(np.asarray(backs), np.asarray(backs2), atol=1e-5)
-
-
 class TestFusedChamfer:
     """fused_masked_nn == two separate truncated_chamfer calls (fwd + grad)."""
 
@@ -415,62 +279,6 @@ class TestFusedChamfer:
         assert np.isfinite(np.asarray(g)).all()
 
 
-class TestScatterMaxMulti:
-    def test_matches_separate_scatters(self, monkeypatch):
-        from himo_tpu.ops.voxelize import scatter_max_multi
-
-        monkeypatch.setenv("HIMO_PALLAS_INTERPRET", "1")
-        rng = np.random.default_rng(11)
-        cfg = PillarConfig(
-            x_range=(-8.0, 8.0), y_range=(-8.0, 8.0), voxel_size=(0.5, 0.5)
-        )
-        feats_list, grids = [], []
-        for k in range(3):
-            pts = rng.uniform(-9.0, 9.0, size=(600, 3)).astype(np.float32)
-            pts[:, 2] = 0.0
-            valid = rng.random(600) > 0.1
-            grids.append(voxelize_pillars(jnp.asarray(pts), jnp.asarray(valid), cfg))
-            feats_list.append(
-                jnp.asarray(rng.normal(size=(600, 8)).astype(np.float32))
-            )
-        fused = scatter_max_multi(feats_list, grids)
-        for f, g, img in zip(feats_list, grids, fused):
-            ref = np.asarray(scatter_max(f, g))
-            np.testing.assert_allclose(np.asarray(img), ref, atol=1e-5)
-
-    def test_gradients_match_separate(self, monkeypatch):
-        from himo_tpu.ops.voxelize import scatter_max_multi
-
-        monkeypatch.setenv("HIMO_PALLAS_INTERPRET", "1")
-        rng = np.random.default_rng(12)
-        cfg = PillarConfig(
-            x_range=(-4.0, 4.0), y_range=(-4.0, 4.0), voxel_size=(0.5, 0.5)
-        )
-        pts = [
-            rng.uniform(-3.9, 3.9, size=(300, 3)).astype(np.float32)
-            for _ in range(2)
-        ]
-        for p in pts:
-            p[:, 2] = 0.0
-        grids = [voxelize_pillars(jnp.asarray(p), config=cfg) for p in pts]
-        feats = [
-            jnp.asarray(rng.normal(size=(300, 4)).astype(np.float32))
-            for _ in range(2)
-        ]
-
-        def loss_fused(fs):
-            imgs = scatter_max_multi(fs, grids)
-            return sum(jnp.sum(i**2) for i in imgs)
-
-        def loss_sep(fs):
-            return sum(jnp.sum(scatter_max(f, g) ** 2) for f, g in zip(fs, grids))
-
-        g_fused = jax.grad(loss_fused)(feats)
-        g_sep = jax.grad(loss_sep)(feats)
-        for a, b in zip(g_fused, g_sep):
-            np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=1e-4)
-
-
 class TestUpsampleNearest:
     def test_matches_resize(self):
         from himo_tpu.models.feedforward import _upsample_nearest
@@ -487,111 +295,3 @@ class TestUpsampleNearest:
         x = jnp.ones((4, 6, 3))
         out = _upsample_nearest(x, 9, 9)
         assert out.shape == (9, 9, 3)
-
-
-def test_scatter_max_bwd_pallas_route(monkeypatch):
-    """HIMO_MAXBWD_PALLAS=1 must produce identical max-scatter gradients."""
-    from himo_tpu.ops.voxelize import _band_partition, _diff_scatter_sorted_fn
-
-    monkeypatch.setenv("HIMO_PALLAS_INTERPRET", "1")
-    num_rows, c = 262144, 33  # 512^2-style, multi-band
-    assert _band_partition(num_rows, c)[0] >= 2
-    rng = np.random.default_rng(21)
-    n = 4096
-    pids = jnp.asarray(rng.integers(0, num_rows, size=n).astype(np.int32))
-    feats = jnp.asarray(rng.normal(size=(n, c)).astype(np.float32))
-
-    def loss(f, interp):
-        out = _diff_scatter_sorted_fn(num_rows, "max", interp)(pids, f)
-        return jnp.sum(out[:num_rows] ** 2)
-
-    g_xla = jax.grad(lambda f: loss(f, True))(feats)
-    monkeypatch.setenv("HIMO_MAXBWD_PALLAS", "1")
-    _diff_scatter_sorted_fn.cache_clear()
-    g_pl = jax.grad(lambda f: loss(f, True))(feats)
-    monkeypatch.delenv("HIMO_MAXBWD_PALLAS")
-    _diff_scatter_sorted_fn.cache_clear()
-    np.testing.assert_allclose(np.asarray(g_pl), np.asarray(g_xla), atol=1e-5)
-
-
-class TestScatterMaxGatherEngine:
-    """HIMO_SCATTER=gather: the gather-composed scatter-max (segmented
-    cummax + 1-D index scatter + column takes) must match the default
-    engine bit-for-bit in forward and gradients."""
-
-    def _make(self, rng, n=700, c=9):
-        cfg = PillarConfig(
-            x_range=(-8.0, 8.0), y_range=(-8.0, 8.0), voxel_size=(0.5, 0.5)
-        )
-        pts = rng.uniform(-9.0, 9.0, size=(n, 3)).astype(np.float32)
-        pts[:, 2] = 0.0
-        valid = rng.random(n) > 0.15  # some masked AND some out-of-range
-        grid = voxelize_pillars(jnp.asarray(pts), jnp.asarray(valid), cfg)
-        feats = jnp.asarray(rng.normal(size=(n, c)).astype(np.float32))
-        return grid, feats
-
-    def test_forward_matches_default(self, rng, monkeypatch):
-        grid, feats = self._make(rng)
-        ref = np.asarray(scatter_max(feats, grid))
-        monkeypatch.setenv("HIMO_SCATTER", "gather")
-        out = np.asarray(scatter_max(feats, grid))
-        np.testing.assert_array_equal(out, ref)
-
-    def test_gradients_match_default(self, rng, monkeypatch):
-        grid, feats = self._make(rng, n=400, c=5)
-
-        def loss(f):
-            return jnp.sum(scatter_max(f, grid) ** 2)
-
-        g_ref = np.asarray(jax.grad(loss)(feats))
-        monkeypatch.setenv("HIMO_SCATTER", "gather")
-        g_out = np.asarray(jax.grad(loss)(feats))
-        np.testing.assert_allclose(g_out, g_ref, atol=1e-5)
-
-    def test_vmap_matches_loop(self, rng, monkeypatch):
-        monkeypatch.setenv("HIMO_SCATTER", "gather")
-        cfg = PillarConfig(
-            x_range=(-4.0, 4.0), y_range=(-4.0, 4.0), voxel_size=(0.5, 0.5)
-        )
-        b, n, c = 3, 256, 4
-        pts = rng.uniform(-4.5, 4.5, size=(b, n, 3)).astype(np.float32)
-        pts[..., 2] = 0.0
-        feats = jnp.asarray(rng.normal(size=(b, n, c)).astype(np.float32))
-
-        def one(p, f):
-            grid = voxelize_pillars(p, config=cfg)
-            return scatter_max(f, grid)
-
-        batched = np.asarray(jax.vmap(one)(jnp.asarray(pts), feats))
-        for i in range(b):
-            ref = np.asarray(one(jnp.asarray(pts[i]), feats[i]))
-            np.testing.assert_allclose(batched[i], ref, atol=1e-6)
-
-    def test_all_trash_frame_is_zero(self, monkeypatch):
-        monkeypatch.setenv("HIMO_SCATTER", "gather")
-        cfg = PillarConfig(
-            x_range=(0.0, 2.0), y_range=(0.0, 2.0), voxel_size=(1.0, 1.0)
-        )
-        pts = np.full((16, 3), 99.0, dtype=np.float32)  # all out of range
-        grid = voxelize_pillars(jnp.asarray(pts), config=cfg)
-        out = np.asarray(scatter_max(jnp.ones((16, 3), np.float32), grid))
-        assert (out == 0.0).all()
-
-
-def test_segment_rows_sum_gather_engine(monkeypatch, rng):
-    """HIMO_SCATTER=gather routes segment_rows_sum through the segmented
-    cumsum + takes composition; must match XLA segment_sum exactly."""
-    from himo_tpu.ops.nn import segment_rows_sum
-
-    n, seg, c = 513, 97, 7
-    idx = jnp.asarray(rng.integers(0, seg + 3, size=n).astype(np.int32))
-    vals = jnp.asarray(rng.normal(size=(n, c)).astype(np.float32))
-    ref = np.asarray(
-        jax.ops.segment_sum(
-            jnp.where((idx < seg)[:, None], vals, 0.0), jnp.minimum(idx, seg - 1),
-            num_segments=seg,
-        )
-    )
-    monkeypatch.setenv("HIMO_SCATTER", "gather")
-    out = np.asarray(segment_rows_sum(vals, idx, seg))
-    np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-5)

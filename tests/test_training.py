@@ -276,7 +276,7 @@ def test_checkpoint_retention_tracks_best_metric(tmp_path):
             {"params": {"w": jnp.full((2,), float(step))}},
             metrics={"val_total": v},
         )
-    kept = sorted(mgr.manager.all_steps())
+    kept = sorted(mgr.all_steps())
     mgr.close()
     assert kept == [2, 4], f"expected the two best-val steps, got {kept}"
 
@@ -425,7 +425,7 @@ def test_resume_uses_latest_not_best(tmp_path):
     latest.close()
     # best-k retention kept only step 100...
     b = CheckpointManager(run / "ckpts", keep=1, best_metric="val_total")
-    assert b.manager.all_steps() == [100]
+    assert b.all_steps() == [100]
     b.close()
     # ...but the resume manager returns the true latest.
     l2 = CheckpointManager(run / "ckpts_latest", keep=1)
